@@ -7,44 +7,68 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
 
 1. Device: a CUDA device is required (no CPU fallback); prints its name,
    the device count and ``nvidia-smi``'s name and power limit.
-2. Build: compiles ``metagenomic_deepfri_tpu_torch/csrc/*.cu`` with nvcc.
+2. Build: compiles ``metagenomic_deepfri_tpu_torch/csrc/*.cu`` with nvcc
+   (``graphconv.cu``: B1, B2; ``contact.cu``: B3).
 3. Kernels against their plain PyTorch twins on the card, at B=4,
    L ∈ {130, 512} (sentinels and insertions) plus a near-threshold batch
-   (pairs at 6 Å ± 1 ulp): degrees exact, aggregation rtol 1e-5 / atol 1e-4
-   for D ∈ {48, 512, 1024} in float32 and bfloat16 compute.
-4. The slice at full published width: three GCN modes (bp 3992, cc 320,
-   mf 489 terms; LSTM-LM 512×2, embed 1024, GraphConv 512×3, FC 1024) with
-   seeded random weights, 96 alignment-projected proteins of length 40–500,
-   through ``BatchedPredictor(device="cuda").predict_stream`` in bfloat16
-   and float32. Checks ids, finiteness, range, kernel launch counts, and
-   the float32 scores against the dense plain route on the card
+   (pairs at 6 Å ± 1 ulp): degrees and contact maps exact, aggregation
+   rtol 1e-5 / atol 1e-4 for D ∈ {48, 512, 1024} in float32 and bfloat16
+   compute.
+4. The inference slice at full published width: three GCN modes (bp 3992,
+   cc 320, mf 489 terms; LSTM-LM 512×2, embed 1024, GraphConv 512×3,
+   FC 1024) with seeded random weights, 96 alignment-projected proteins of
+   length 40–500, through ``BatchedPredictor(device="cuda").predict_stream``
+   in bfloat16 and float32. Checks ids, finiteness, range, kernel launch
+   counts, and the float32 scores against the dense plain route on the card
    (atol 1e-4). Times a warm pass (proteins/s), the forward's stage shares,
    and each kernel against its twin at the main path's shapes.
-5. Prints the kernel summary, the card's name and power limit, and last
+5. The fine-tuning path at full published width: 48 synthetic CA-trace
+   structures of length 40–500 (buckets 128/256/512), labels over the mf
+   head's 489 terms, base weights exported to ONNX, then
+   ``training.finetune(..., device="cuda", epochs=2, batch_size=8)`` in
+   float32. Checks one B3 launch per batch, each batch's adjacency against
+   the host maps (exact), finite losses, a lower loss after training on a
+   fixed batch, float32 loss and gradients against float64 on the card
+   (rtol below), and that the written ``.npz`` and ONNX load back with equal
+   parameters. Times a training step per bucket, the LSTM's share of it,
+   and B3 against its twin at B ∈ {8, 32}, L ∈ {128, 256, 512}.
+6. Prints the kernel summary, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 try:
-    from metagenomic_deepfri_tpu_torch import synthetic
+    from metagenomic_deepfri_tpu_torch import synthetic, training
     from metagenomic_deepfri_tpu_torch.batching.buckets import (
         assign_bucket, gcn_batch_size)
     from metagenomic_deepfri_tpu_torch.batching.engine import (
         BatchedPredictor, ModelHandle, _pad_batch_coords)
     from metagenomic_deepfri_tpu_torch.models import deepfri
+    from metagenomic_deepfri_tpu_torch.models.convert import \
+        gcn_params_from_numpy
     from metagenomic_deepfri_tpu_torch.models.lstm import lstm_stack_forward
+    from metagenomic_deepfri_tpu_torch.models import registry
+    from metagenomic_deepfri_tpu_torch.models.registry import \
+        load_model_handle
     from metagenomic_deepfri_tpu_torch.ops import _build
+    from metagenomic_deepfri_tpu_torch.ops import contact
     from metagenomic_deepfri_tpu_torch.ops import graphconv as gc
     from metagenomic_deepfri_tpu_torch.ops.one_hot import tokens2onehot
+    from metagenomic_deepfri_tpu_torch.parallel import train
+    from metagenomic_deepfri_tpu_torch.precision import \
+        use_highest_f32_precision
 except ModuleNotFoundError as err:
     raise SystemExit("chip_smoke.py runs from the root of a checkout of the "
                      f"repo: {err}") from None
@@ -58,11 +82,25 @@ TIMED_BATCH = 32
 BUCKETS = (128, 256, 512)
 AGG_TOL = dict(rtol=1e-5, atol=1e-4)
 SLICE_ATOL = 1e-4
-SOURCE = "metagenomic_deepfri_tpu_torch/csrc/graphconv.cu"
+# Phase 5: the fine-tuning path.
+FT_PROTEINS = 48
+FT_TERMS = 489         # the mf head of the published models
+FT_EPOCHS = 2
+FT_BATCH = 8
+FT_LR = 1e-3
+# float32 against float64 on the card: loss and every gradient leaf,
+# normwise (max |g32 - g64| / max |g64|).
+GRAD_RTOL = 1e-4
+SOURCES = {
+    "graphconv_aggregate": "metagenomic_deepfri_tpu_torch/csrc/graphconv.cu",
+    "contact_degrees": "metagenomic_deepfri_tpu_torch/csrc/graphconv.cu",
+    "contact_map": "metagenomic_deepfri_tpu_torch/csrc/contact.cu",
+}
 REPLACES = {
     "contact_degrees": "metagenomic_deepfri_tpu/ops/graphconv_pallas.py:190",
     "graphconv_aggregate":
         "metagenomic_deepfri_tpu/ops/graphconv_pallas.py:275",
+    "contact_map": "metagenomic_deepfri_tpu/ops/contact.py:193",
 }
 
 
@@ -75,6 +113,18 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch counter to 0."""
+    gc.reset_launch_counts()
+    contact.contact_map_fused.launches = 0
+
+
+def launch_counts() -> dict:
+    return {"graphconv_aggregate": gc.graphconv_aggregate.launches,
+            "contact_degrees": gc.contact_degrees.launches,
+            "contact_map": contact.contact_map_fused.launches}
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -102,8 +152,18 @@ def phase_kernels(dev):
     cases.append(("near-threshold L=512",
                   on_dev(synthetic.near_threshold_batch(B=4, L=512,
                                                         seed=SEED))))
-    err = {"contact_degrees": 0.0, "graphconv_aggregate": 0.0}
+    err = {"contact_degrees": 0.0, "graphconv_aggregate": 0.0,
+           "contact_map": 0.0}
     for name, (coords, ins, lengths) in cases:
+        cmap = contact.contact_map_fused(coords, lengths)
+        ref = contact.batched_contact_maps(coords, lengths)
+        torch.cuda.synchronize()
+        d = (cmap - ref).abs().max().item()
+        err["contact_map"] = max(err["contact_map"], d)
+        log(f"  contact_map {name}: max|Δ|={d} (atol 0), "
+            f"{int(ref.sum().item())} contacts")
+        if d != 0.0:
+            raise AssertionError(f"contact_map differs at {name}")
         deg = gc.contact_degrees(coords, ins, lengths)
         ref = gc.contact_degrees_ref(coords, ins, lengths)
         torch.cuda.synchronize()
@@ -249,6 +309,224 @@ def kernel_times(dev):
     return rows
 
 
+def kernel_device_ms(fn, name: str, iters: int = 10) -> float | None:
+    """Mean device time of the CUDA kernel ``name`` over ``iters`` calls of
+    ``fn``, from ``torch.profiler``; None if the trace shows no such
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if name in e.key]
+    if not hits:
+        return None
+    return (sum(e.device_time_total for e in hits)
+            / sum(e.count for e in hits) / 1e3)
+
+
+def contact_map_times(dev):
+    """B3 and its twin at the fine-tuning path's shapes (B=8) and B=32:
+    CUDA-event time per call (host launch included) and the kernel's own
+    device time."""
+    rows = []
+    for B in (FT_BATCH, TIMED_BATCH):
+        for L in BUCKETS:
+            coords, _, lengths = (
+                torch.from_numpy(a).to(dev)
+                for a in synthetic.contact_batch(B=B, L=L, seed=L + B))
+
+            def kernel():
+                return contact.contact_map_fused(coords, lengths)
+
+            rows.append({
+                "kernel": "contact_map", "B": B, "bucket": L,
+                "ms": cuda_ms(kernel),
+                "plain_ms": cuda_ms(lambda: contact.batched_contact_maps(
+                    coords, lengths)),
+                "device_ms": kernel_device_ms(kernel, "contact_map_kernel")})
+    return rows
+
+
+def normwise_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got - ref| / max |ref|, in float64."""
+    ref = ref.double()
+    return ((got.double() - ref).abs().max()
+            / ref.abs().max().clamp_min(1e-300)).item()
+
+
+def loss_and_grads(params_np, config, batch, dev):
+    """gcn_loss and its gradients at ``params_np`` in the config's dtype."""
+    dtype = deepfri.compute_dtype_of(config)
+    params = gcn_params_from_numpy(params_np, dev, dtype, requires_grad=True)
+    tokens, adj, lengths, labels = batch
+    loss = train.gcn_loss(params, config, tokens, adj.to(dtype), lengths,
+                          labels)
+    grads = torch.autograd.grad(loss, train.param_leaves(params))
+    return [loss.detach()] + list(grads)
+
+
+def precision_check(params_np, config, batch, dev):
+    """Worst normwise error of float32 (and, reported only, TF32) loss and
+    gradients against float64, all on the card."""
+    ref = loss_and_grads(params_np, dataclasses.replace(
+        config, compute_dtype="float64"), batch, dev)
+    use_highest_f32_precision()
+    f32 = loss_and_grads(params_np, config, batch, dev)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = loss_and_grads(params_np, config, batch, dev)
+    finally:
+        use_highest_f32_precision()
+    return {name: max(normwise_err(g, r) for g, r in zip(got, ref,
+                                                         strict=True))
+            for name, got in (("float32", f32), ("tf32", tf32))}
+
+
+def step_times(params_np, config, batches, dev):
+    """Seconds per training step per bucket and the LSTM-LM's forward and
+    backward alone on the same batch: host clock around each synchronised
+    call, the two taken in turns after one warm call each, median of 5."""
+    rows = []
+    for bucket, batch in sorted(batches.items()):
+        state = train.init_train_state(config, FT_LR, dev, params=params_np)
+        step = train.make_train_step(config)
+        tokens, _, lengths, _ = batch
+        lm = gcn_params_from_numpy(params_np["lm"], dev, requires_grad=True)
+        valid = (torch.arange(bucket, device=dev)[None, :]
+                 < lengths[:, None])
+        onehot = tokens2onehot(tokens) * valid[:, :, None]
+
+        def train_step():
+            nonlocal state
+            state, _ = step(state, *batch)
+
+        def lstm_fwd_bwd():
+            lstm_stack_forward(lm, onehot, lengths).sum().backward()
+
+        fns = {"step_s": train_step, "lstm_s": lstm_fwd_bwd}
+        samples = {name: [] for name in fns}
+        for rep in range(6):
+            for name, fn in fns.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                if rep:  # the first round warms up
+                    samples[name].append(time.perf_counter() - t0)
+        secs = {name: float(np.median(v)) for name, v in samples.items()}
+        rows.append({"bucket": bucket, "batch": FT_BATCH, **secs,
+                     "lstm_share": secs["lstm_s"] / secs["step_s"]})
+    return rows
+
+
+def assert_trees_equal(a, b, what: str) -> None:
+    fa, fb = registry._flatten(a), registry._flatten(b)
+    if fa.keys() != fb.keys() or any(
+            fa[k].shape != fb[k].shape or not np.array_equal(fa[k], fb[k])
+            for k in fa):
+        raise AssertionError(f"{what}: parameters differ")
+
+
+def phase_finetune(dev, smi):
+    """Phase 5: fine-tune the full-width mf GCN; returns B3's launches."""
+    # The ONNX graphs consume the adjacency as fed (as the published ones
+    # do), so the imported config has no normalisation.
+    cfg = deepfri.GCNConfig(n_labels=FT_TERMS, adj_norm="none")
+    terms = synthetic.goterms(FT_TERMS)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        structures, labels_path = synthetic.write_training_corpus(
+            tmp, FT_PROTEINS, terms, seed=SEED)
+        base = deepfri.init_gcn(cfg, torch.Generator().manual_seed(SEED),
+                                "cpu")
+        weights = synthetic.write_gcn_weights(tmp / "weights", cfg, base,
+                                              terms)
+        base_handle = load_model_handle(
+            "gcn", "mf", next(weights.glob("*.onnx")),
+            next(weights.glob("*_model_params.json")))
+        if base_handle.config != cfg:
+            raise AssertionError(f"base config {base_handle.config}")
+
+        dataset = training.FineTuneDataset(
+            structures, training.load_labels(labels_path, terms))
+        plan = list(dataset.batch_plan(FT_BATCH, np.random.default_rng(SEED)))
+        counts = {}
+        for bucket, _ in plan:
+            counts[bucket] = counts.get(bucket, 0) + 1
+        log(f"phase 5: {len(dataset.items)} structures, {len(plan)} batches "
+            f"an epoch {counts}, {FT_EPOCHS} epochs, batch {FT_BATCH}")
+
+        # Each batch's adjacency (B3 on the card) against the host maps.
+        batches = {}
+        for (bucket, chunk), batch in zip(plan, dataset.iter_batches(
+                FT_BATCH, np.random.default_rng(SEED), dev), strict=True):
+            host = np.zeros((len(chunk), bucket, bucket), np.float32)
+            for j, idx in enumerate(chunk):
+                xyz = dataset.items[idx][1]
+                host[j, :len(xyz), :len(xyz)] = contact.calculate_contact_map(
+                    xyz, threshold=dataset.contact_threshold)
+            if not np.array_equal(batch[1].cpu().numpy(), host):
+                raise AssertionError(f"bucket {bucket}: B3 adjacency differs "
+                                     "from the host contact maps")
+            batches.setdefault(bucket, batch)
+        log(f"  adjacency of all {len(plan)} batches equals the host maps")
+
+        losses = []
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        ckpt = training.finetune(
+            weights, "mf", structures, labels_path, tmp / "out",
+            device=dev, epochs=FT_EPOCHS, learning_rate=FT_LR,
+            batch_size=FT_BATCH, seed=SEED,
+            on_step=lambda i, loss: losses.append(loss))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = launch_counts()
+        want = FT_EPOCHS * len(plan)
+        losses = torch.stack(losses).cpu().numpy()
+        log(f"  finetune: {secs:.2f} s, {len(losses)} steps, launches "
+            f"{launches}, losses {losses[0]:.5f} … {losses[-1]:.5f}")
+        if launches["contact_map"] != want or len(losses) != want:
+            raise AssertionError(f"expected {want} steps and B3 launches")
+        if not np.isfinite(losses).all():
+            raise AssertionError("non-finite training loss")
+
+        out = ckpt.parent
+        params_json = next(out.glob("*_model_params.json"))
+        tuned = load_model_handle("gcn", "mf", ckpt, params_json)
+        reexport = load_model_handle("gcn", "mf", next(out.glob("*.onnx")),
+                                     params_json)
+        if tuned.config != cfg or reexport.config != cfg:
+            raise AssertionError("fine-tuned config differs from the base")
+        assert_trees_equal(tuned.params, reexport.params, ".npz vs ONNX")
+        log("  .npz and ONNX re-export load back with equal parameters")
+
+        fixed = batches[max(batches)]
+        with torch.no_grad():
+            before, after = (train.gcn_loss(
+                gcn_params_from_numpy(h.params, dev), cfg, *fixed).item()
+                for h in (base_handle, tuned))
+        log(f"  fixed bucket-{max(batches)} batch: loss {before:.6f} before, "
+            f"{after:.6f} after")
+        if not after < before:
+            raise AssertionError("fine-tuning did not lower the loss")
+
+        errs = precision_check(base_handle.params, cfg, fixed, dev)
+        log(f"  loss and gradients vs float64 on the card (normwise, worst "
+            f"leaf): float32 {errs['float32']:.3g} (rtol {GRAD_RTOL}), "
+            f"TF32 {errs['tf32']:.3g} (reported, not asserted)")
+        if not errs["float32"] <= GRAD_RTOL:
+            raise AssertionError("float32 gradients differ from float64")
+
+        for row in step_times(base_handle.params, cfg, batches, dev):
+            log(f"  train step {json.dumps(row)} on {smi}")
+    return launches["contact_map"]
+
+
 def main() -> int:
     # Phase 1: device.
     if not torch.cuda.is_available():
@@ -284,12 +562,12 @@ def main() -> int:
     log(f"phase 4: {N_PROTEINS} proteins, {len(MODES)} modes, "
         f"{n_batches} batches per engine")
 
-    gc.reset_launch_counts()
+    reset_launch_counts()
     results = {dt: run_stream(eng, items) for dt, eng in engines.items()}
-    launches = {"contact_degrees": gc.contact_degrees.launches,
-                "graphconv_aggregate": gc.graphconv_aggregate.launches}
+    launches = launch_counts()
     want = {"contact_degrees": 2 * len(MODES) * n_batches,
-            "graphconv_aggregate": 2 * 3 * len(MODES) * n_batches}
+            "graphconv_aggregate": 2 * 3 * len(MODES) * n_batches,
+            "contact_map": 0}
     log(f"  launches {launches}, expected {want}")
     if launches != want:
         raise AssertionError("kernel launch counts differ from expected")
@@ -301,9 +579,9 @@ def main() -> int:
 
     dense = BatchedPredictor(handles["float32"], device=dev,
                              batch_cap=BATCH_CAP, spmm="dense")
-    gc.reset_launch_counts()
+    reset_launch_counts()
     dense_out, _, _ = run_stream(dense, items)
-    if gc.contact_degrees.launches or gc.graphconv_aggregate.launches:
+    if any(launch_counts().values()):
         raise AssertionError("the dense plain route launched a kernel")
     f32_vs_dense = max_diff(results["float32"][0], dense_out)
     bf16_vs_f32 = max_diff(results["bfloat16"][0], results["float32"][0])
@@ -327,17 +605,28 @@ def main() -> int:
     for r in times:
         log(f"  {json.dumps(r)}")
 
+    # Phase 5: the fine-tuning path (B3 builds each batch's adjacency).
+    launches["contact_map"] = phase_finetune(dev, smi)
+    cmap_times = contact_map_times(dev)
+    log(f"contact_map times (CUDA events, mean of 10) on {smi}:")
+    for r in cmap_times:
+        log(f"  {json.dumps(r)}")
+
     def headline(name):
+        if name == "contact_map":  # the fine-tuning batch: B=8, bucket 512
+            return next(r for r in cmap_times if r["B"] == FT_BATCH
+                        and r["bucket"] == 512)
         return next(r for r in times if r["kernel"] == name
                     and r["bucket"] == 512 and r["dtype"] == "float32"
                     and r["D"] in (None, 1024))
 
     summary = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
+        {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": errors[name], "ms": headline(name)["ms"],
          "plain_ms": headline(name)["plain_ms"]}
-        for name in ("graphconv_aggregate", "contact_degrees")]}
+        for name in ("graphconv_aggregate", "contact_degrees",
+                     "contact_map")]}
     log(json.dumps(summary))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {

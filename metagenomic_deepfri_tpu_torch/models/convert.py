@@ -14,26 +14,37 @@ import torch
 
 
 def gcn_params_from_numpy(tree, device,
-                          dtype: torch.dtype = torch.float32):
+                          dtype: torch.dtype = torch.float32,
+                          requires_grad: bool = False):
     """Copy every array leaf of ``tree`` to a ``dtype`` tensor on ``device``.
 
     Leaves may be numpy arrays, anything ``np.asarray`` accepts, or tensors
-    (moved, not copied, when already of that device and dtype).
+    (moved, not copied, when already of that device and dtype). With
+    ``requires_grad`` every leaf is a fresh copy that autograd tracks: the
+    trainable parameters of a fine-tuning run, which the optimizer updates
+    in place without touching ``tree``.
     """
     if isinstance(tree, dict):
-        return {k: gcn_params_from_numpy(v, device, dtype)
+        return {k: gcn_params_from_numpy(v, device, dtype, requires_grad)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [gcn_params_from_numpy(v, device, dtype) for v in tree]
+        return [gcn_params_from_numpy(v, device, dtype, requires_grad)
+                for v in tree]
     if isinstance(tree, torch.Tensor):
-        return tree.to(device=device, dtype=dtype)
-    return torch.tensor(np.asarray(tree), dtype=dtype, device=device)
+        leaf = tree.detach().to(device=device, dtype=dtype,
+                                copy=requires_grad)
+    else:
+        leaf = torch.tensor(np.asarray(tree), dtype=dtype, device=device)
+    return leaf.requires_grad_(requires_grad)
 
 
 def gcn_params_to_numpy(tree):
-    """Inverse of :func:`gcn_params_from_numpy`: float32 numpy leaves."""
+    """Inverse of :func:`gcn_params_from_numpy`: float32 numpy leaves
+    (numpy leaves pass through as float32)."""
     if isinstance(tree, dict):
         return {k: gcn_params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [gcn_params_to_numpy(v) for v in tree]
-    return tree.detach().to("cpu", torch.float32).numpy()
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(tree, np.float32)

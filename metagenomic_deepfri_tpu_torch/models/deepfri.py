@@ -23,13 +23,17 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from metagenomic_deepfri_tpu_torch.models.lstm import (init_lstm_stack,
+from metagenomic_deepfri_tpu_torch.models.lstm import (accumulate_dtype,
+                                                       init_lstm_stack,
                                                        lstm_stack_forward)
 from metagenomic_deepfri_tpu_torch.ops.graphconv import normalized_aggregate
 from metagenomic_deepfri_tpu_torch.ops.one_hot import (VOCAB_SIZE,
                                                        tokens2onehot)
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# float64 is not a serving dtype: it is the reference precision that float32
+# training is checked against (dense path only; the kernels are float32).
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float64": torch.float64}
 
 
 @dataclass(frozen=True)
@@ -44,7 +48,7 @@ class GCNConfig:
     fc_dims: Tuple[int, ...] = (1024,)
     adj_norm: str = "sym"          # 'sym' | 'row' | 'none'
     pool: str = "sum"              # 'sum' | 'mean' over the length axis
-    compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
+    compute_dtype: str = "float32"  # 'float32' | 'bfloat16' | 'float64'
 
 
 def compute_dtype_of(config) -> torch.dtype:
@@ -162,26 +166,47 @@ def _embed(params: dict, config: GCNConfig, tokens: torch.Tensor,
            lengths: torch.Tensor):
     """One-hot → LSTM-LM + residue embedding → (x in compute dtype, valid)."""
     dtype = compute_dtype_of(config)
+    acc = accumulate_dtype(dtype)
     L = tokens.shape[1]
     valid = (torch.arange(L, dtype=torch.int32, device=tokens.device)[None, :]
-             < lengths.to(torch.int32)[:, None]).to(torch.float32)
-    onehot = tokens2onehot(tokens, torch.float32) * valid[:, :, None]
+             < lengths.to(torch.int32)[:, None]).to(acc)
+    onehot = tokens2onehot(tokens, acc) * valid[:, :, None]
     lm_out = lstm_stack_forward(params["lm"], onehot, lengths,
                                 compute_dtype=dtype)
     x = _dense(params["lm_embed"], lm_out) + _dense(params["aa_embed"], onehot)
     return torch.relu(x).to(dtype), valid
 
 
-def _pooled_head(params: dict, config: GCNConfig, gc_outputs: list,
-                 valid: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """concat → masked pool → FC stack → per-term scores (B, n_labels)."""
-    concat = torch.cat(gc_outputs, dim=-1).to(torch.float32)
+def _pooled_fc(params: dict, config: GCNConfig, gc_outputs: list,
+               valid: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """concat → masked pool → FC stack → (B, fc_dims[-1]) head features."""
+    concat = torch.cat(gc_outputs, dim=-1).to(valid.dtype)
     # Padded rows are zero unless a GraphConv bias shifted them, so pooling
     # always re-masks to valid positions.
     pooled = _pool_over_length(concat, valid, lengths, config.pool)
     for layer in params["fc"]:
         pooled = torch.relu(_dense(layer, pooled))
-    return _head_scores(params["head"], pooled, config.n_labels)
+    return pooled
+
+
+def _gcn_trunk(params: dict, config: GCNConfig, tokens: torch.Tensor,
+               adjacency: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Dense-adjacency trunk: one-hot → LM branch → GraphConv stack → pooled
+    FC features (B, fc_dims[-1]), shared by :func:`gcn_forward` and
+    :func:`gcn_forward_logits`."""
+    dtype = compute_dtype_of(config)
+    acc = accumulate_dtype(dtype)
+    x, valid = _embed(params, config, tokens, lengths)
+    adj = normalize_adjacency(adjacency.to(acc), config.adj_norm).to(dtype)
+    gc_outputs = []
+    for layer in params["gc"]:
+        # adj and x are already rounded to the compute dtype; their bmm in
+        # float32 (float64 for float64 compute) is the reference's
+        # preferred_element_type=float32 product.
+        agg = torch.bmm(adj.to(acc), x.to(acc))
+        x = graphconv_apply(layer, agg.to(dtype), dtype)
+        gc_outputs.append(x)
+    return _pooled_fc(params, config, gc_outputs, valid, lengths)
 
 
 def gcn_forward(params: dict, config: GCNConfig, tokens: torch.Tensor,
@@ -195,20 +220,24 @@ def gcn_forward(params: dict, config: GCNConfig, tokens: torch.Tensor,
         lengths: (B,) int32 true lengths.
 
     Returns:
-        (B, n_labels) float32 per-term scores in [0, 1].
+        (B, n_labels) float32 per-term scores in [0, 1] (float64 for float64
+        compute).
     """
-    dtype = compute_dtype_of(config)
-    x, valid = _embed(params, config, tokens, lengths)
-    adj = normalize_adjacency(adjacency.to(torch.float32),
-                              config.adj_norm).to(dtype)
-    gc_outputs = []
-    for layer in params["gc"]:
-        # adj and x are already rounded to the compute dtype; their float32
-        # bmm is the reference's preferred_element_type=float32 product.
-        agg = torch.bmm(adj.to(torch.float32), x.to(torch.float32))
-        x = graphconv_apply(layer, agg.to(dtype), dtype)
-        gc_outputs.append(x)
-    return _pooled_head(params, config, gc_outputs, valid, lengths)
+    pooled = _gcn_trunk(params, config, tokens, adjacency, lengths)
+    return _head_scores(params["head"], pooled, config.n_labels)
+
+
+def gcn_forward_logits(params: dict, config: GCNConfig, tokens: torch.Tensor,
+                       adjacency: torch.Tensor,
+                       lengths: torch.Tensor) -> torch.Tensor:
+    """Batched GCN forward returning (B, n_labels, 2) pre-softmax logits.
+
+    Training entry point: the fine-tuning loss needs raw logits, not the
+    class-0 probabilities of the inference contract.
+    """
+    pooled = _gcn_trunk(params, config, tokens, adjacency, lengths)
+    logits = _dense(params["head"], pooled)
+    return logits.reshape(*logits.shape[:-1], config.n_labels, 2)
 
 
 def gcn_forward_fused(params: dict, config: GCNConfig, tokens: torch.Tensor,
@@ -235,21 +264,24 @@ def gcn_forward_fused(params: dict, config: GCNConfig, tokens: torch.Tensor,
             compute_dtype=config.compute_dtype)
         x = graphconv_apply(layer, agg.to(dtype), dtype)
         gc_outputs.append(x)
-    return _pooled_head(params, config, gc_outputs, valid, lengths)
+    pooled = _pooled_fc(params, config, gc_outputs, valid, lengths)
+    return _head_scores(params["head"], pooled, config.n_labels)
 
 
 # ---------------------------------------------------------------------------
 # nn.Module holder
 # ---------------------------------------------------------------------------
 
-def _to_module(tree) -> nn.Module:
+def _to_module(tree, requires_grad: bool) -> nn.Module:
     """Nested dict/list parameter tree → nested ModuleDict/ParameterDict."""
     if isinstance(tree, list):
-        return nn.ModuleList([_to_module(v) for v in tree])
+        return nn.ModuleList([_to_module(v, requires_grad) for v in tree])
     if all(isinstance(v, torch.Tensor) for v in tree.values()):
         return nn.ParameterDict(
-            {k: nn.Parameter(v, requires_grad=False) for k, v in tree.items()})
-    return nn.ModuleDict({k: _to_module(v) for k, v in tree.items()})
+            {k: nn.Parameter(v, requires_grad=requires_grad)
+             for k, v in tree.items()})
+    return nn.ModuleDict({k: _to_module(v, requires_grad)
+                          for k, v in tree.items()})
 
 
 def _to_tree(module: nn.Module):
@@ -265,14 +297,17 @@ class DeepFRIGCN(nn.Module):
 
     ``forward`` runs the fused path (:func:`gcn_forward_fused`);
     :meth:`forward_dense` runs the dense reference (:func:`gcn_forward`).
-    Parameters are frozen (inference only).
+    Parameters are frozen (inference) unless ``trainable=True``; training
+    runs the dense route, whose autograd graph :meth:`forward_dense` and
+    :func:`gcn_forward_logits` on :meth:`tree` both record.
     """
 
-    def __init__(self, config: GCNConfig, params: dict):
+    def __init__(self, config: GCNConfig, params: dict,
+                 trainable: bool = False):
         super().__init__()
         compute_dtype_of(config)  # reject an unknown dtype up front
         self.config = config
-        self.params = _to_module(params)
+        self.params = _to_module(params, trainable)
 
     def tree(self) -> dict:
         """The parameters as the plain tree the functional forwards take."""

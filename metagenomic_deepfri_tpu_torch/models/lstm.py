@@ -11,7 +11,9 @@ precision split (``lstm.py:56-77``): the input projection is one matmul of
 hidden state is in ``compute_dtype`` and the cell state in float32; the
 emitted per-step output is the float32 ``h`` before the cast, so the next
 layer and the embedding see float32. cuDNN's ``nn.LSTM`` keeps no such
-split and is not used.
+split and is not used. With float64 compute everything is float64: that
+mode exists to check float32 training against a higher precision. The loop
+is differentiable (training backpropagates through it with autograd).
 """
 
 from __future__ import annotations
@@ -56,15 +58,23 @@ def init_lstm_stack(in_dim: int, hidden: int, layers: int,
     return params
 
 
+def accumulate_dtype(compute_dtype: torch.dtype) -> torch.dtype:
+    """The type sums and the cell state are kept in: float32 for bfloat16
+    and float32 compute, float64 for float64 (the reference precision)."""
+    return torch.promote_types(compute_dtype, torch.float32)
+
+
 def _matmul_f32_result(a: torch.Tensor, b: torch.Tensor,
                        dtype: torch.dtype) -> torch.Tensor:
-    """``a @ b`` with both operands rounded to ``dtype``, float32 result.
+    """``a @ b`` with both operands rounded to ``dtype``, float32 result
+    (float64 for float64 operands).
 
     Products of bfloat16 values are exact in float32, so a float32 matmul of
     the rounded operands is the bf16-in, f32-accumulate product of the
     reference (``preferred_element_type=float32``).
     """
-    return a.to(dtype).to(torch.float32) @ b.to(dtype).to(torch.float32)
+    acc = accumulate_dtype(dtype)
+    return a.to(dtype).to(acc) @ b.to(dtype).to(acc)
 
 
 def lstm_forward(params: dict, x: torch.Tensor, reverse: bool = False,
@@ -73,24 +83,29 @@ def lstm_forward(params: dict, x: torch.Tensor, reverse: bool = False,
 
     ``reverse=True`` scans right-to-left. Padded positions are processed like
     any other step; forward-direction outputs at valid positions are
-    unaffected by right padding.
+    unaffected by right padding. The per-step outputs are collected and
+    stacked once, so autograd records one stack rather than a chain of
+    in-place slice writes.
     """
+    acc = accumulate_dtype(compute_dtype)
     hidden = params["recurrent"].shape[0]
     B, L = x.shape[0], x.shape[1]
+    if L == 0:
+        return torch.zeros((B, 0, hidden), dtype=acc, device=x.device)
     xw = _matmul_f32_result(x, params["kernel"], compute_dtype) \
-        + params["bias"].to(torch.float32)
+        + params["bias"].to(acc)
     recurrent = params["recurrent"].to(compute_dtype)
     h = torch.zeros((B, hidden), dtype=compute_dtype, device=x.device)
-    c = torch.zeros((B, hidden), dtype=torch.float32, device=x.device)
-    out = torch.empty((B, L, hidden), dtype=torch.float32, device=x.device)
+    c = torch.zeros((B, hidden), dtype=acc, device=x.device)
+    out = [None] * L
     for t in (range(L - 1, -1, -1) if reverse else range(L)):
-        gates = xw[:, t] + (h @ recurrent).to(torch.float32)
+        gates = xw[:, t] + (h @ recurrent).to(acc)
         i, f, g, o = gates.chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h_out = torch.sigmoid(o) * torch.tanh(c)
-        out[:, t] = h_out
+        out[t] = h_out
         h = h_out.to(compute_dtype)
-    return out
+    return torch.stack(out, dim=1)
 
 
 def reverse_sequences(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:

@@ -91,6 +91,8 @@ def load_library() -> ctypes.CDLL:
     lib.mdf_graphconv_aggregate.argtypes = [p, p, p, p, p, i, i, i, f, i, i,
                                             p]
     lib.mdf_graphconv_aggregate.restype = i
+    lib.mdf_contact_map.argtypes = [p, p, p, i, i, f, p]
+    lib.mdf_contact_map.restype = i
     lib.mdf_error_string.argtypes = [i]
     lib.mdf_error_string.restype = ctypes.c_char_p
     return lib

@@ -18,53 +18,25 @@ Normalisation identity used by :func:`normalized_aggregate`:
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from metagenomic_deepfri_tpu_torch.ops import _build
 from metagenomic_deepfri_tpu_torch.ops.cmap_align import \
     aligned_contacts_from_coords
+from metagenomic_deepfri_tpu_torch.ops.contact import (_check_kernel_inputs,
+                                                       _route, _thr2)
 
 _COMPUTE_DTYPES = ("float32", "bfloat16")
-_MAX_GRID_BATCH = 65535  # CUDA grid y/z limit; the batch is a grid axis
-
-
-def _thr2(threshold: float) -> float:
-    """threshold² as the float32 the reference compares against."""
-    return float(np.float32(threshold * threshold))
 
 
 def _check_inputs(coords, ins_mask, lengths, xs=None):
     """Validate device, dtype, shape and contiguity for the CUDA kernels."""
-    if coords.dim() != 3 or coords.shape[-1] != 3:
-        raise ValueError(f"coords must be (B, L, 3), got {tuple(coords.shape)}")
-    B, L, _ = coords.shape
-    if B > _MAX_GRID_BATCH:
-        raise ValueError(f"batch {B} exceeds the kernels' grid limit")
-    named = [("coords", coords, torch.float32, (B, L, 3)),
-             ("ins_mask", ins_mask, torch.bool, (B, L)),
+    B, L = coords.shape[:2]
+    named = [("ins_mask", ins_mask, torch.bool, (B, L)),
              ("lengths", lengths, torch.int32, (B,))]
     if xs is not None:
         named.append(("xs", xs, torch.float32, (B, L, xs.shape[-1])))
-    for name, t, dtype, shape in named:
-        if t.device != coords.device:
-            raise ValueError(f"{name} is on {t.device}, coords on "
-                             f"{coords.device}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got "
-                             f"{tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
-def _route(coords: torch.Tensor) -> str:
-    if coords.device.type == "cpu":
-        return "ref"
-    if coords.device.type == "cuda":
-        return "cuda"
-    raise ValueError(f"no GraphConv kernel for device {coords.device}")
+    _check_kernel_inputs(coords, named)
 
 
 def contact_degrees_ref(coords, ins_mask, lengths, threshold: float = 6.0,
@@ -105,7 +77,7 @@ def contact_degrees(coords: torch.Tensor, ins_mask: torch.Tensor,
         ins_mask: (B, L) bool insertion positions.
         lengths: (B,) int32 true lengths.
     """
-    if _route(coords) == "ref":
+    if _route(coords, "GraphConv") == "ref":
         return contact_degrees_ref(coords, ins_mask, lengths, threshold,
                                    generated_contacts)
     _check_inputs(coords, ins_mask, lengths)
@@ -143,7 +115,7 @@ def graphconv_aggregate(coords: torch.Tensor, ins_mask: torch.Tensor,
     """
     if compute_dtype not in _COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {_COMPUTE_DTYPES}")
-    if _route(coords) == "ref":
+    if _route(coords, "GraphConv") == "ref":
         return graphconv_aggregate_ref(coords, ins_mask, lengths, xs,
                                        threshold, generated_contacts,
                                        compute_dtype)

@@ -6,8 +6,15 @@ from a seed, so the JAX package and the port can be handed identical arrays.
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
+
 import numpy as np
 
+from metagenomic_deepfri_tpu_torch.data.structures import write_ca_pdb
+from metagenomic_deepfri_tpu_torch.models.convert import gcn_params_to_numpy
+from metagenomic_deepfri_tpu_torch.models.onnx_import import \
+    export_gcn_to_onnx
 from metagenomic_deepfri_tpu_torch.ops.cmap_align import (
     _SENTINEL_BASE, _SENTINEL_SPACING, project_alignment_coords)
 
@@ -132,3 +139,61 @@ def aligned_items(n: int, seed: int, min_len: int = 40, max_len: int = 500):
             rng, int(rng.integers(min_len, max_len + 1)))
         items.append((f"p{i}", seq, proj, ins))
     return items
+
+
+def goterms(n: int) -> list:
+    """``n`` distinct GO-term ids, ``GO:0000000`` upwards."""
+    return [f"GO:{i:07d}" for i in range(n)]
+
+
+def write_training_corpus(directory, n: int, terms: list, seed: int,
+                          min_len: int = 40, max_len: int = 500,
+                          terms_per_protein=(2, 5)):
+    """A fine-tuning corpus: ``n`` CA-trace PDB files and a labels TSV.
+
+    Each protein is a 3.8 Å random-walk chain with a length drawn uniformly
+    from [min_len, max_len] and a random sequence, labelled with 2–5 (by
+    default) distinct terms of ``terms``. Returns
+    ``(structures_dir, labels_path)`` inside ``directory``.
+    """
+    directory = Path(directory)
+    structures = directory / "structures"
+    structures.mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    lines = []
+    for i in range(n):
+        length = int(rng.integers(min_len, max_len + 1))
+        seq = "".join(rng.choice(list(AMINO_ACIDS), size=length))
+        write_ca_pdb(structures / f"p{i}.pdb", seq,
+                     _target_chain(rng, length))
+        k = int(rng.integers(terms_per_protein[0], terms_per_protein[1] + 1))
+        picked = rng.choice(len(terms), size=k, replace=False)
+        lines.append(f"p{i}\t" + ";".join(terms[j] for j in picked))
+    labels = directory / "labels.tsv"
+    labels.write_text("\n".join(lines) + "\n", encoding="utf-8")
+    return structures, labels
+
+
+def write_gcn_weights(directory, config, params: dict, terms: list,
+                      mode: str = "mf", contact_threshold: float = 10.0):
+    """A weights folder holding one GCN, as the published folders do.
+
+    Writes ``params`` (a numpy or tensor tree) as ONNX with the port's
+    exporter, its ``_model_params.json`` (``goterms``/``gonames``) and a
+    ``model_config.json`` naming it for ``mode``. Returns the folder.
+    """
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    name = (f"DeepFRI-MERGED_GraphConv_"
+            f"gcd_{'-'.join(map(str, config.gc_dims))}_"
+            f"fcd_{'-'.join(map(str, config.fc_dims))}_ca_"
+            f"{contact_threshold}_{mode}.onnx")
+    export_gcn_to_onnx(gcn_params_to_numpy(params), config,
+                       str(directory / name))
+    with open(directory / (name[:-5] + "_model_params.json"), "w",
+              encoding="utf-8") as f:
+        json.dump({"goterms": list(terms),
+                   "gonames": [f"term {t}" for t in terms]}, f)
+    with open(directory / "model_config.json", "w", encoding="utf-8") as f:
+        json.dump({"gcn": {mode: name}, "cnn": {}, "version": "1.1"}, f)
+    return directory

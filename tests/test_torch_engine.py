@@ -177,7 +177,10 @@ def _run_python(code: str, env=None) -> subprocess.CompletedProcess:
 
 def test_port_imports_no_jax():
     mods = _port_modules()
-    assert f"{PKG}.batching.engine" in mods and f"{PKG}.ops._build" in mods
+    assert {f"{PKG}.{m}" for m in (
+        "batching.engine", "ops._build", "ops.contact", "data.structures",
+        "models.onnx_reader", "models.onnx_import", "models.registry",
+        "parallel.train", "training", "utils")} <= set(mods)
     proc = _run_python(f"""
         import importlib, sys
         for name in {mods!r} + ["chip_smoke"]:

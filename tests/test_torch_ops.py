@@ -13,9 +13,10 @@ import torch
 import jax.numpy as jnp
 
 from metagenomic_deepfri_tpu.ops import cmap_align as jax_cmap
+from metagenomic_deepfri_tpu.ops import contact as jax_contact
 from metagenomic_deepfri_tpu.ops import graphconv_pallas as jax_gc
 from metagenomic_deepfri_tpu.ops import one_hot as jax_one_hot
-from metagenomic_deepfri_tpu_torch.ops import cmap_align, one_hot
+from metagenomic_deepfri_tpu_torch.ops import cmap_align, contact, one_hot
 from metagenomic_deepfri_tpu_torch.ops import graphconv as gc
 from metagenomic_deepfri_tpu_torch.synthetic import (aligned_protein,
                                                      contact_batch,
@@ -150,3 +151,104 @@ def test_wrappers_reject_other_devices_and_dtypes():
     with pytest.raises(ValueError, match="normalisation"):
         gc.normalized_aggregate(*batch, torch.ones((1, 8, 4)),
                                 adj_norm="bogus")
+
+
+def _contact_case(case):
+    """(coords (B, L, 3) float32, lengths (B,) int32) for the B3 tests.
+
+    L128/L130 are the cases of ``tests/test_pallas.py``'s
+    ``test_contact_map_fused_bucket128``; near_threshold puts pairs at
+    6 Å ± 1 ulp.
+    """
+    if case == "near_threshold":
+        coords, _, _ = near_threshold_batch(B=2, L=96, seed=6)
+        return coords, np.array([96, 61], np.int32)
+    L = int(case[1:])
+    rng = np.random.default_rng(9)
+    coords = np.cumsum(rng.normal(size=(2, L, 3)), axis=1).astype(np.float32)
+    return coords, np.asarray([L, L - 7], np.int32)
+
+
+def _padded_host_maps(coords, lengths):
+    """Each protein's numpy ``calculate_contact_map`` (the JAX package's
+    host path, which its fine-tuning dataset pads into batches)."""
+    out = np.zeros(coords.shape[:2] + coords.shape[1:2], np.float32)
+    for b, n in enumerate(lengths):
+        out[b, :n, :n] = jax_contact.calculate_contact_map(coords[b, :n])
+    return out
+
+
+@pytest.mark.parametrize("case", ["L128", "L130"])
+def test_contact_map_twin_matches_pallas(case):
+    """B3's plain twin equals the Pallas kernel (interpret mode), the JAX
+    ``batched_contact_maps`` and the padded host maps exactly (atol 0)."""
+    coords, lengths = _contact_case(case)
+    ref_kernel = np.asarray(jax_contact.contact_map_fused(
+        *_jax(coords, lengths), interpret=True))
+    ref_xla = np.asarray(jax_contact.batched_contact_maps(
+        *_jax(coords, lengths)))
+    contact.contact_map_fused.launches = 0
+    out = contact.contact_map_fused(*_torch(coords, lengths))
+    assert contact.contact_map_fused.launches == 0  # CPU: the twin ran
+    assert out.dtype == torch.float32 and out.shape == ref_kernel.shape
+    np.testing.assert_allclose(out.numpy(), ref_kernel, rtol=0, atol=0)
+    np.testing.assert_allclose(out.numpy(), ref_xla, rtol=0, atol=0)
+    np.testing.assert_array_equal(out.numpy(),
+                                  _padded_host_maps(coords, lengths))
+
+
+def test_contact_map_near_threshold():
+    """Pairs at 6 Å ± 1 ulp: the twin equals the JAX host maps exactly.
+
+    The JAX device paths differ from the JAX host path there: XLA on the
+    CPU contracts the fused distance into fma(dz, dz, fma(dx, dx, dy²)),
+    which rounds differently from mul-then-add x, y, z. The port keeps the
+    host path's arithmetic (the maps the JAX trainer feeds its model), so
+    every pair where it disagrees with a JAX device path must sit within one
+    float32 ulp of thr² = 36.
+    """
+    coords, lengths = _contact_case("near_threshold")
+    out = contact.contact_map_fused(*_torch(coords, lengths)).numpy()
+    np.testing.assert_array_equal(out, _padded_host_maps(coords, lengths))
+    d = (coords[:, :, None, :] - coords[:, None, :, :]).astype(np.float32)
+    sq = d * d
+    dist = (sq[..., 0] + sq[..., 1]) + sq[..., 2]
+    ulp = np.spacing(np.float32(36.0))
+    for ref in (jax_contact.contact_map_fused(*_jax(coords, lengths),
+                                              interpret=True),
+                jax_contact.batched_contact_maps(*_jax(coords, lengths))):
+        differs = out != np.asarray(ref)
+        assert np.all(np.abs(dist[differs] - np.float32(36.0)) <= ulp)
+
+
+@pytest.mark.parametrize("mode", ["matrix", "sparse"])
+def test_calculate_contact_map_matches_jax(mode):
+    coords, _ = _contact_case("near_threshold")
+    for xyz in (coords[0], coords[1, :61]):
+        ref = jax_contact.calculate_contact_map(xyz, mode=mode)
+        out = contact.calculate_contact_map(xyz, mode=mode)
+        assert out.dtype == np.int32
+        np.testing.assert_array_equal(out, ref)
+    np.testing.assert_array_equal(contact.pairwise_sqeuclidean(coords[0]),
+                                  jax_contact.pairwise_sqeuclidean(coords[0]))
+    with pytest.raises(ValueError, match="Unsupported distance"):
+        contact.calculate_contact_map(coords[0], distance="euclidean")
+
+
+def test_contact_map_twin_equals_padded_host_maps():
+    """The batch map of padded coordinates is each protein's host map,
+    zero-padded: the equality the fine-tuning dataset relies on."""
+    coords, lengths = _contact_case("near_threshold")
+    coords[1, 61:] = 99.0  # padding values must not matter
+    out = contact.contact_map_fused(*_torch(coords, lengths)).numpy()
+    for b, n in enumerate(lengths):
+        want = np.zeros((96, 96), np.float32)
+        want[:n, :n] = contact.calculate_contact_map(coords[b, :n])
+        np.testing.assert_array_equal(out[b], want)
+
+
+def test_contact_map_rejects_other_devices():
+    with pytest.raises(ValueError, match="no contact-map kernel"):
+        contact.contact_map_fused(
+            torch.zeros((1, 4, 3), device="meta"),
+            torch.zeros(1, dtype=torch.int32, device="meta"))
