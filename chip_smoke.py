@@ -32,7 +32,22 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    (rtol below), and that the written ``.npz`` and ONNX load back with equal
    parameters. Times a training step per bucket, the LSTM's share of it,
    and B3 against its twin at B ∈ {8, 32}, L ∈ {128, 256, 512}.
-6. Prints the kernel summary, the card's name and power limit, and last
+6. The published model set: a weights folder for bp/cc/mf written in the
+   published exporter's tf2onnx pattern, a GCN (full width, the three
+   sharing one LSTM-LM and embedding) and a CNN (512 filters of widths 8
+   and 16, FC 1024) per mode, with heads biased so that most scores fall
+   below 0.1. ``registry.load_models`` (sharing detected),
+   ``parity.verify_weights(device="cuda")`` on 2 proteins per model (scores
+   and scaled logits within 1e-4), then the 96 proteins of phase 4 through
+   ``predict_stream`` on the fused route (B1/B2 launches counted) and on the
+   dense route's shared-trunk step (atol 1e-4 between them), 64 sequences
+   without a structure hit (length 40–1000) through ``predict_cnn`` (each
+   row within 1e-5 of its unpadded single-protein run on the card), and a
+   ``score_topk=256`` engine held to the dense one (overflow sets equal,
+   above-threshold values equal on complete rows). Times a warm pass of
+   each route, the CNN, and the bp head's top-k fetch against its dense
+   fetch (passes taken in turns, median of 3).
+7. Prints the kernel summary, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -50,14 +65,15 @@ import numpy as np
 import torch
 
 try:
-    from metagenomic_deepfri_tpu_torch import synthetic, training
+    from metagenomic_deepfri_tpu_torch import parity, synthetic, training
     from metagenomic_deepfri_tpu_torch.batching.buckets import (
         assign_bucket, gcn_batch_size)
     from metagenomic_deepfri_tpu_torch.batching.engine import (
-        BatchedPredictor, ModelHandle, _pad_batch_coords)
+        BatchedPredictor, ModelHandle, _expand_topk_host, _pad_batch,
+        _pad_batch_coords)
     from metagenomic_deepfri_tpu_torch.models import deepfri
-    from metagenomic_deepfri_tpu_torch.models.convert import \
-        gcn_params_from_numpy
+    from metagenomic_deepfri_tpu_torch.models.convert import (
+        gcn_params_from_numpy, gcn_params_to_numpy)
     from metagenomic_deepfri_tpu_torch.models.lstm import lstm_stack_forward
     from metagenomic_deepfri_tpu_torch.models import registry
     from metagenomic_deepfri_tpu_torch.models.registry import \
@@ -65,6 +81,8 @@ try:
     from metagenomic_deepfri_tpu_torch.ops import _build
     from metagenomic_deepfri_tpu_torch.ops import contact
     from metagenomic_deepfri_tpu_torch.ops import graphconv as gc
+    from metagenomic_deepfri_tpu_torch.ops.cmap_align import \
+        aligned_contacts_from_coords
     from metagenomic_deepfri_tpu_torch.ops.one_hot import tokens2onehot
     from metagenomic_deepfri_tpu_torch.parallel import train
     from metagenomic_deepfri_tpu_torch.precision import \
@@ -91,6 +109,21 @@ FT_LR = 1e-3
 # float32 against float64 on the card: loss and every gradient leaf,
 # normwise (max |g32 - g64| / max |g64|).
 GRAD_RTOL = 1e-4
+# Phase 6: the published model set. P6_GCN / P6_CNN override the configs'
+# published defaults (empty: full width).
+P6_GCN = {}
+P6_CNN = {}
+P6_SEQS = 64
+P6_SEQ_LENGTHS = (40, 1000)
+P6_VERIFY_PROTEINS = 2
+# The GCN heads' kernels are scaled down so that the sum-pooled features do
+# not saturate the logits; the biases then come from the scores.
+P6_HEAD_SCALE = 1e-3
+P6_ROUNDS = 3
+TOPK = 256
+SCORE_THRESHOLD = 0.1
+ROUTE_ATOL = 1e-4
+CNN_ATOL = 1e-5
 SOURCES = {
     "graphconv_aggregate": "metagenomic_deepfri_tpu_torch/csrc/graphconv.cu",
     "contact_degrees": "metagenomic_deepfri_tpu_torch/csrc/graphconv.cu",
@@ -201,8 +234,8 @@ def make_handles(dtype: str, dev):
     return handles
 
 
-def run_stream(engine, items):
-    out = {m: {} for m in MODES}
+def run_stream(engine, items, overflow_cb=None, modes=None):
+    out = {m: {} for m in (modes or MODES)}
 
     def collect(part):
         for m, rows in part.items():
@@ -210,8 +243,8 @@ def run_stream(engine, items):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    n = engine.predict_stream(iter(items), net="gcn_coords",
-                              result_cb=collect)
+    n = engine.predict_stream(iter(items), net="gcn_coords", modes=modes,
+                              result_cb=collect, overflow_cb=overflow_cb)
     torch.cuda.synchronize()
     return out, n, time.perf_counter() - t0
 
@@ -227,6 +260,7 @@ def expected_batches(items) -> int:
 
 
 def check_scores(out, items):
+    """Ids complete, rows of the head's width, finite and in [0, 1]."""
     for m, n_labels in MODES.items():
         if set(out[m]) != {it[0] for it in items}:
             raise AssertionError(f"mode {m}: ids missing or extra")
@@ -527,6 +561,256 @@ def phase_finetune(dev, smi):
     return launches["contact_map"]
 
 
+def expect_launches(got: dict, want: dict, what: str) -> None:
+    log(f"  {what}: launches {got}, expected {want}")
+    if got != want:
+        raise AssertionError(f"{what}: kernel launch counts differ")
+
+
+def no_hit_sequences(n: int, seed: int) -> list:
+    """``n`` (id, sequence) CNN items, lengths uniform in P6_SEQ_LENGTHS."""
+    rng = np.random.default_rng(seed)
+    lo, hi = P6_SEQ_LENGTHS
+    return [(f"s{i}", "".join(rng.choice(list(synthetic.AMINO_ACIDS),
+                                         size=int(rng.integers(lo, hi + 1)))))
+            for i in range(n)]
+
+
+def near_threshold_terms(n_labels: int) -> int:
+    """Terms whose median score sits on the threshold: 2·K for a head that
+    top-k compacts (so some proteins overflow and some do not), an eighth
+    of the head otherwise."""
+    return 2 * TOPK if n_labels > 2 * TOPK else n_labels // 8
+
+
+def calibrate_heads(handles: dict, logits) -> None:
+    """Set each zero-bias head's bias from its logits over a catalogue
+    (``logits(handle)``: (P, n_labels, 2), computed on the card), as
+    ``synthetic.threshold_head_bias`` says."""
+    for i, h in enumerate(handles.values()):
+        out = logits(h)
+        h.params["head"]["bias"] = synthetic.threshold_head_bias(
+            out[..., 0] - out[..., 1], SCORE_THRESHOLD,
+            near_threshold_terms(h.config.n_labels), seed=SEED + i)
+
+
+def catalogue_logits(dev, items, seqs):
+    """Functions of a handle giving its (P, n_labels, 2) logits over the
+    GCN catalogue (dense route, bucket 512) or the CNN one (bucket 1024)."""
+    gcn_batches = []
+    for start in range(0, len(items), BATCH_CAP):
+        chunk = items[start:start + BATCH_CAP]
+        tokens, lengths, coords, ins = (
+            torch.from_numpy(a).to(dev)
+            for a in _pad_batch_coords(chunk, 512, len(chunk)))
+        gcn_batches.append((tokens, aligned_contacts_from_coords(
+            coords, ins, lengths), lengths))
+    cnn_batch = tuple(torch.from_numpy(a).to(dev)
+                      for a in _pad_batch(seqs, 1024, len(seqs)))
+
+    def gcn(h):
+        params = gcn_params_from_numpy(h.params, dev)
+        with torch.inference_mode():
+            return torch.cat([deepfri.gcn_forward_logits(
+                params, h.config, *b) for b in gcn_batches]).cpu().numpy()
+
+    def cnn(h):
+        with torch.inference_mode():
+            return deepfri.cnn_forward_logits(
+                gcn_params_from_numpy(h.params, dev), h.config,
+                *cnn_batch).cpu().numpy()
+
+    return gcn, cnn
+
+
+def model_set_params(dev, items, seqs):
+    """{mode: GCN handle}, {mode: CNN handle}: numpy trees, the GCNs sharing
+    bp's LSTM-LM and embeddings, every head calibrated on the card."""
+    gcn, cnn = {}, {}
+    for i, (mode, n_labels) in enumerate(MODES.items()):
+        gcfg = deepfri.GCNConfig(n_labels=n_labels, adj_norm="none",
+                                 **P6_GCN)
+        gp = gcn_params_to_numpy(deepfri.init_gcn(
+            gcfg, torch.Generator().manual_seed(SEED + 10 + i), "cpu"))
+        gp["head"]["kernel"] *= P6_HEAD_SCALE
+        if gcn:
+            for k in ("lm", "lm_embed", "aa_embed"):
+                gp[k] = gcn["bp"].params[k]
+        gcn[mode] = ModelHandle("gcn", mode, gcfg, gp)
+        ccfg = deepfri.CNNConfig(n_labels=n_labels, **P6_CNN)
+        cnn[mode] = ModelHandle("cnn", mode, ccfg, gcn_params_to_numpy(
+            deepfri.init_cnn(ccfg, torch.Generator().manual_seed(
+                SEED + 20 + i), "cpu")))
+    gcn_logits, cnn_logits = catalogue_logits(dev, items, seqs)
+    calibrate_heads(gcn, gcn_logits)
+    calibrate_heads(cnn, cnn_logits)
+    return gcn, cnn
+
+
+def timed(fn):
+    """(result, seconds) of ``fn()`` between two synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def fetch_times(dev, reps: int = 50) -> dict:
+    """Milliseconds to bring one batch of bp scores (BATCH_CAP × 3992, on
+    the card) to dense host rows: the dense fetch against top-k on the card
+    plus the (value, index) fetch and the host expansion. Host clock
+    around synchronised calls, median of ``reps``, taken in turns."""
+    n_labels = MODES["bp"]
+    scores = torch.rand((BATCH_CAP, n_labels), device=dev)
+
+    def dense():
+        return scores.cpu().numpy()
+
+    def topk():
+        vals, idx = torch.topk(scores, TOPK, dim=-1, sorted=True)
+        return _expand_topk_host((vals.cpu().numpy(),
+                                  idx.to(torch.int32).cpu().numpy()),
+                                 n_labels, SCORE_THRESHOLD)
+
+    samples = {"dense_fetch_ms": [], "topk_fetch_ms": []}
+    for rep in range(reps + 1):
+        for name, fn in (("dense_fetch_ms", dense), ("topk_fetch_ms", topk)):
+            _, secs = timed(fn)
+            if rep:
+                samples[name].append(1e3 * secs)
+    return {name: float(np.median(v)) for name, v in samples.items()}
+
+
+def phase_models(dev, smi, items):
+    """Phase 6: the published model set through the whole engine; every
+    check raises on failure."""
+    seqs = no_hit_sequences(P6_SEQS, SEED)
+    gcn_np, cnn_np = model_set_params(dev, items, seqs)
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = synthetic.write_model_set(
+            Path(tmp) / "weights",
+            {m: (h.config, h.params, synthetic.goterms(h.config.n_labels))
+             for m, h in gcn_np.items()},
+            {m: (h.config, h.params, synthetic.goterms(h.config.n_labels))
+             for m, h in cnn_np.items()})
+        t0 = time.perf_counter()
+        gcn_h, cnn_h, _ = registry.load_models(weights, list(MODES))
+        log(f"phase 6: load_models {time.perf_counter() - t0:.2f} s: GCN "
+            f"{sorted(gcn_h)}, CNN {sorted(cnn_h)}")
+        for m in MODES:
+            if (gcn_h[m].config != gcn_np[m].config
+                    or cnn_h[m].config != cnn_np[m].config):
+                raise AssertionError(f"{m}: imported config differs")
+            assert_trees_equal(gcn_h[m].params, gcn_np[m].params,
+                               f"gcn/{m}")
+            assert_trees_equal(cnn_h[m].params, cnn_np[m].params,
+                               f"cnn/{m}")
+        t0 = time.perf_counter()
+        results = parity.verify_weights(weights, device=dev,
+                                        n_proteins=P6_VERIFY_PROTEINS)
+        log(f"  verify_weights ({time.perf_counter() - t0:.2f} s, "
+            f"{P6_VERIFY_PROTEINS} proteins a model):")
+        for r in results:
+            log(f"    {r.net}/{r.mode}: scores max|Δ|={r.max_abs_diff:.3g}, "
+                f"scaled logits max|Δ|={r.max_logit_diff:.3g} (tol "
+                f"{r.tolerance}) {'ok' if r.ok else 'FAIL'}")
+        if len(results) != 2 * len(MODES) or not all(r.ok for r in results):
+            raise AssertionError("verify_weights: a model exceeds tolerance")
+
+    fused = BatchedPredictor(gcn_h, cnn_h, device=dev, batch_cap=BATCH_CAP)
+    dense = BatchedPredictor(gcn_h, cnn_h, device=dev, batch_cap=BATCH_CAP,
+                             spmm="dense")
+    topk = BatchedPredictor(gcn_h, device=dev, batch_cap=BATCH_CAP,
+                            spmm="dense", score_topk=TOPK)
+    shared = sorted(dense._gcn_shared[0]) if dense._gcn_shared else []
+    log(f"  shared trunk: {shared}")
+    if shared != ["aa_embed", "lm", "lm_embed"] or not dense._multi_key(
+            list(MODES)):
+        raise AssertionError("the shared LSTM-LM and embedding not detected")
+
+    n_batches = expected_batches(items)
+    reset_launch_counts()
+    fused_out, _, _ = run_stream(fused, items)
+    expect_launches(launch_counts(), {
+        "contact_degrees": len(MODES) * n_batches,
+        "graphconv_aggregate": 3 * len(MODES) * n_batches,
+        "contact_map": 0}, "fused route")
+    launches = launch_counts()
+    reset_launch_counts()
+    dense_out, _, _ = run_stream(dense, items)
+    expect_launches(launch_counts(), {k: 0 for k in launches},
+                    "dense multi-mode route")
+    for out in (fused_out, dense_out):
+        check_scores(out, items)
+    route_diff = max_diff(fused_out, dense_out)
+    log(f"  fused per mode vs dense multi-mode: max|Δ|={route_diff:.3g} "
+        f"(atol {ROUTE_ATOL})")
+    if not route_diff <= ROUTE_ATOL:
+        raise AssertionError("the two GCN routes differ")
+
+    reset_launch_counts()
+    cnn_out, _ = timed(lambda: fused.predict_cnn(seqs))
+    expect_launches(launch_counts(), {k: 0 for k in launches}, "CNN")
+    check_scores(cnn_out, seqs)
+    cnn_diff = 0.0
+    with torch.inference_mode():
+        for m, h in cnn_h.items():
+            params = gcn_params_from_numpy(h.params, dev)
+            for qid, seq in seqs:
+                single = deepfri.forward_pass_single(params, h.config, seq)
+                cnn_diff = max(cnn_diff, float(np.abs(
+                    single.cpu().numpy() - cnn_out[m][qid]).max()))
+    log(f"  CNN batch vs unpadded single runs: max|Δ|={cnn_diff:.3g} "
+        f"(atol {CNN_ATOL}), {len(seqs)} sequences")
+    if not cnn_diff <= CNN_ATOL:
+        raise AssertionError("CNN batch rows differ from unpadded runs")
+
+    flagged = set()
+    topk_out, _, _ = run_stream(topk, items, overflow_cb=lambda m, q: (
+        flagged.update(q) if m == "bp" else None))
+    want = {q for q, row in dense_out["bp"].items()
+            if (row >= SCORE_THRESHOLD).sum() >= TOPK}
+    topk_diff = max((float(np.abs(topk_out["bp"][q][row >= SCORE_THRESHOLD]
+                                  - row[row >= SCORE_THRESHOLD]).max(
+                                      initial=0.0))
+                     for q, row in dense_out["bp"].items()
+                     if q not in flagged), default=0.0)
+    above = [int((r >= SCORE_THRESHOLD).sum())
+             for r in dense_out["bp"].values()]
+    log(f"  top-k {TOPK} (bp, {MODES['bp']} terms): {len(flagged)} rows "
+        f"overflowed, {len(items) - len(flagged)} complete; terms ≥ "
+        f"{SCORE_THRESHOLD} a row: {min(above)}–{max(above)}; complete rows "
+        f"vs dense: max|Δ|={topk_diff:.3g}")
+    if flagged != want or not 0 < len(flagged) < len(items):
+        raise AssertionError("top-k overflow set differs from the dense rows")
+    if not topk_diff <= 1e-6:
+        raise AssertionError("top-k rows differ from the dense rows")
+
+    def per_mode(eng):
+        # one request per mode: the dense route then runs no shared step
+        return sum(run_stream(eng, items, modes=[m])[2] for m in MODES)
+
+    passes = {
+        "fused_per_mode": lambda: run_stream(fused, items)[2],
+        "dense_per_mode": lambda: per_mode(dense),
+        "dense_multimode": lambda: run_stream(dense, items)[2],
+        "dense_multimode_topk": lambda: run_stream(topk, items)[2],
+        "cnn": lambda: timed(lambda: fused.predict_cnn(seqs))[1]}
+    samples = {name: [] for name in passes}
+    for _ in range(P6_ROUNDS):
+        for name, fn in passes.items():
+            samples[name].append(fn())
+    rates = {f"{name}_proteins_per_s":
+             (len(seqs) if name == "cnn" else len(items)) / float(
+                 np.median(secs)) for name, secs in samples.items()}
+    log(f"  warm passes, median of {P6_ROUNDS} taken in turns "
+        f"({len(items)} proteins, {len(MODES)} modes; CNN {len(seqs)} "
+        f"sequences, {len(MODES)} modes): {json.dumps(rates)} on {smi}")
+    log(f"  bp fetch of one batch ({BATCH_CAP} × {MODES['bp']}): "
+        f"{json.dumps(fetch_times(dev))} on {smi}")
+
+
 def main() -> int:
     # Phase 1: device.
     if not torch.cuda.is_available():
@@ -565,12 +849,10 @@ def main() -> int:
     reset_launch_counts()
     results = {dt: run_stream(eng, items) for dt, eng in engines.items()}
     launches = launch_counts()
-    want = {"contact_degrees": 2 * len(MODES) * n_batches,
-            "graphconv_aggregate": 2 * 3 * len(MODES) * n_batches,
-            "contact_map": 0}
-    log(f"  launches {launches}, expected {want}")
-    if launches != want:
-        raise AssertionError("kernel launch counts differ from expected")
+    expect_launches(launches, {
+        "contact_degrees": 2 * len(MODES) * n_batches,
+        "graphconv_aggregate": 2 * 3 * len(MODES) * n_batches,
+        "contact_map": 0}, "bf16 and f32 engines")
     for dt, (out, n, secs) in results.items():
         if n != N_PROTEINS:
             raise AssertionError(f"{dt}: processed {n} of {N_PROTEINS}")
@@ -611,6 +893,9 @@ def main() -> int:
     log(f"contact_map times (CUDA events, mean of 10) on {smi}:")
     for r in cmap_times:
         log(f"  {json.dumps(r)}")
+
+    # Phase 6: the published model set, both networks, both GCN routes.
+    phase_models(dev, smi, items)
 
     def headline(name):
         if name == "contact_map":  # the fine-tuning batch: B=8, bucket 512

@@ -1,10 +1,11 @@
 """Parameter trees between numpy (the JAX package's form) and torch.
 
-A JAX GCN tree — nested dicts and lists of arrays from ``init_gcn`` or the
-ONNX importers — has the layouts the port keeps (kernels (in, out) for
-``x @ kernel``; LSTM ``kernel`` (in, 4H), ``recurrent`` (H, 4H), gates
-``[i, f, c, o]``), so conversion is a plain copy of each leaf, with no
-transposes or reordering.
+A JAX GCN or CNN tree — nested dicts and lists of arrays from ``init_gcn``,
+``init_cnn`` or the ONNX importers — has the layouts the port keeps (dense
+kernels (in, out) for ``x @ kernel``; LSTM ``kernel`` (in, 4H),
+``recurrent`` (H, 4H), gates ``[i, f, c, o]``; conv kernels (width, in, out),
+which the CNN forward permutes for ``conv1d``), so conversion is a plain copy
+of each leaf, with no transposes or reordering.
 """
 
 from __future__ import annotations
@@ -48,3 +49,8 @@ def gcn_params_to_numpy(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().to("cpu", torch.float32).numpy()
     return np.asarray(tree, np.float32)
+
+
+# The CNN tree converts leaf by leaf exactly as the GCN tree does.
+cnn_params_from_numpy = gcn_params_from_numpy
+cnn_params_to_numpy = gcn_params_to_numpy

@@ -1,10 +1,11 @@
-"""DeepFRI GCN in PyTorch: dense reference forward and the fused forward.
+"""DeepFRI GCN and CNN in PyTorch.
 
-Counterpart of ``metagenomic_deepfri_tpu/models/deepfri.py`` (GCN half).
-Parameters are plain trees of tensors with the JAX package's structure and
-layouts (kernels stored (in, out) for ``x @ kernel``), so a JAX tree converts
-with :func:`..models.convert.gcn_params_from_numpy` and no transposes.
-:class:`DeepFRIGCN` holds such a tree as an ``nn.Module``.
+Counterpart of ``metagenomic_deepfri_tpu/models/deepfri.py``. Parameters are
+plain trees of tensors with the JAX package's structure and layouts (dense
+kernels stored (in, out) for ``x @ kernel``; conv kernels (width, in, out)),
+so a JAX tree converts with :mod:`..models.convert` and no transposes.
+:class:`DeepFRIGCN` and :class:`DeepFRICNN` hold such trees as
+modules.
 
 GCN:   one-hot(26) ─┬─ LSTM-LM stack ── Dense(no bias) ──┐
                     └─ Dense(bias) ──────────────────────┴─ add → ReLU
@@ -12,6 +13,10 @@ GCN:   one-hot(26) ─┬─ LSTM-LM stack ── Dense(no bias) ──┐
        → concat(H₁‖H₂‖H₃) → masked sum-pool over L
        → Dense(1024, ReLU) → Dense(2·n_labels) → reshape (n_labels, 2)
        → softmax(last) → score = [..., 0]
+
+CNN:   one-hot(26) → parallel Conv1D branches ('SAME', one per width)
+       → concat → ReLU → masked global max-pool → Dense stack
+       → the same two-way-softmax head.
 """
 
 from __future__ import annotations
@@ -20,7 +25,9 @@ import math
 from dataclasses import dataclass
 from typing import Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from metagenomic_deepfri_tpu_torch.models.lstm import (accumulate_dtype,
@@ -28,6 +35,7 @@ from metagenomic_deepfri_tpu_torch.models.lstm import (accumulate_dtype,
                                                        lstm_stack_forward)
 from metagenomic_deepfri_tpu_torch.ops.graphconv import normalized_aggregate
 from metagenomic_deepfri_tpu_torch.ops.one_hot import (VOCAB_SIZE,
+                                                       seq2tokens,
                                                        tokens2onehot)
 
 # float64 is not a serving dtype: it is the reference precision that float32
@@ -49,6 +57,18 @@ class GCNConfig:
     adj_norm: str = "sym"          # 'sym' | 'row' | 'none'
     pool: str = "sum"              # 'sum' | 'mean' over the length axis
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16' | 'float64'
+
+
+@dataclass(frozen=True)
+class CNNConfig:
+    n_labels: int
+    vocab: int = VOCAB_SIZE
+    conv_filters: int = 512
+    conv_kernels: Tuple[int, ...] = (8, 16)
+    fc_dims: Tuple[int, ...] = (1024,)
+    # Kept for the config contract; the CNN computes in float32 whatever it
+    # names, as the JAX package's does.
+    compute_dtype: str = "float32"
 
 
 def compute_dtype_of(config) -> torch.dtype:
@@ -106,6 +126,28 @@ def init_gcn(config: GCNConfig, generator: torch.Generator, device, *,
     return params
 
 
+def init_cnn(config: CNNConfig, generator: torch.Generator, device) -> dict:
+    """Random CNN parameter tree (same structure and shapes as the JAX
+    ``init_cnn``: conv kernels (width, vocab, filters), zero biases)."""
+    params = {"conv": [], "fc": []}
+    for ksize in config.conv_kernels:
+        scale = math.sqrt(6.0 / (ksize * config.vocab + config.conv_filters))
+        u = torch.rand((ksize, config.vocab, config.conv_filters),
+                       generator=generator, dtype=torch.float32,
+                       device=generator.device)
+        params["conv"].append({
+            "kernel": ((u * 2.0 - 1.0) * scale).to(device),
+            "bias": torch.zeros(config.conv_filters, dtype=torch.float32,
+                                device=device)})
+    in_dim = config.conv_filters * len(config.conv_kernels)
+    for d in config.fc_dims:
+        params["fc"].append(_dense_init(in_dim, d, generator, device))
+        in_dim = d
+    params["head"] = _dense_init(in_dim, 2 * config.n_labels, generator,
+                                 device)
+    return params
+
+
 # ---------------------------------------------------------------------------
 # Forwards
 # ---------------------------------------------------------------------------
@@ -133,12 +175,16 @@ def normalize_adjacency(adj: torch.Tensor, mode: str = "sym") -> torch.Tensor:
     raise ValueError(f"Unknown adjacency normalisation: {mode}")
 
 
+def _logits(head: dict, x: torch.Tensor, n_labels: int) -> torch.Tensor:
+    """Head logits, (…, n_labels, 2)."""
+    logits = _dense(head, x)
+    return logits.reshape(*logits.shape[:-1], n_labels, 2)
+
+
 def _head_scores(head_params: dict, x: torch.Tensor,
                  n_labels: int) -> torch.Tensor:
     """Per-term 2-way softmax; score = class-0 probability."""
-    logits = _dense(head_params, x)
-    logits = logits.reshape(*logits.shape[:-1], n_labels, 2)
-    return torch.softmax(logits, dim=-1)[..., 0]
+    return torch.softmax(_logits(head_params, x, n_labels), dim=-1)[..., 0]
 
 
 def graphconv_apply(layer: dict, agg: torch.Tensor,
@@ -162,51 +208,91 @@ def _pool_over_length(concat: torch.Tensor, valid: torch.Tensor,
     return pooled
 
 
+def _masked_onehot(tokens: torch.Tensor, lengths: torch.Tensor,
+                   dtype: torch.dtype):
+    """(one-hot zeroed past each length, (B, L) 1/0 valid mask), both in
+    ``dtype``."""
+    L = tokens.shape[1]
+    valid = (torch.arange(L, dtype=torch.int32, device=tokens.device)[None, :]
+             < lengths.to(torch.int32)[:, None]).to(dtype)
+    return tokens2onehot(tokens, dtype) * valid[:, :, None], valid
+
+
+def _merge_embeddings(lm_embed: dict, aa_embed: dict, lm_out: torch.Tensor,
+                      onehot: torch.Tensor, dtype: torch.dtype):
+    """relu(LM embedding + residue embedding), rounded to ``dtype``."""
+    return torch.relu(_dense(lm_embed, lm_out)
+                      + _dense(aa_embed, onehot)).to(dtype)
+
+
 def _embed(params: dict, config: GCNConfig, tokens: torch.Tensor,
            lengths: torch.Tensor):
     """One-hot → LSTM-LM + residue embedding → (x in compute dtype, valid)."""
     dtype = compute_dtype_of(config)
-    acc = accumulate_dtype(dtype)
-    L = tokens.shape[1]
-    valid = (torch.arange(L, dtype=torch.int32, device=tokens.device)[None, :]
-             < lengths.to(torch.int32)[:, None]).to(acc)
-    onehot = tokens2onehot(tokens, acc) * valid[:, :, None]
+    onehot, valid = _masked_onehot(tokens, lengths, accumulate_dtype(dtype))
     lm_out = lstm_stack_forward(params["lm"], onehot, lengths,
                                 compute_dtype=dtype)
-    x = _dense(params["lm_embed"], lm_out) + _dense(params["aa_embed"], onehot)
-    return torch.relu(x).to(dtype), valid
+    x = _merge_embeddings(params["lm_embed"], params["aa_embed"], lm_out,
+                          onehot, dtype)
+    return x, valid
+
+
+def _fc_stack(layers: list, pooled: torch.Tensor,
+              stages: dict | None = None) -> torch.Tensor:
+    """relu(Dense) per FC layer; records ``fc0..fcM`` in ``stages``."""
+    for fi, layer in enumerate(layers):
+        pooled = torch.relu(_dense(layer, pooled))
+        if stages is not None:
+            stages[f"fc{fi}"] = pooled
+    return pooled
 
 
 def _pooled_fc(params: dict, config: GCNConfig, gc_outputs: list,
-               valid: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+               valid: torch.Tensor, lengths: torch.Tensor,
+               stages: dict | None = None) -> torch.Tensor:
     """concat → masked pool → FC stack → (B, fc_dims[-1]) head features."""
     concat = torch.cat(gc_outputs, dim=-1).to(valid.dtype)
     # Padded rows are zero unless a GraphConv bias shifted them, so pooling
     # always re-masks to valid positions.
     pooled = _pool_over_length(concat, valid, lengths, config.pool)
-    for layer in params["fc"]:
-        pooled = torch.relu(_dense(layer, pooled))
-    return pooled
+    if stages is not None:
+        stages["pooled"] = pooled
+    return _fc_stack(params["fc"], pooled, stages)
 
 
-def _gcn_trunk(params: dict, config: GCNConfig, tokens: torch.Tensor,
-               adjacency: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """Dense-adjacency trunk: one-hot → LM branch → GraphConv stack → pooled
-    FC features (B, fc_dims[-1]), shared by :func:`gcn_forward` and
-    :func:`gcn_forward_logits`."""
-    dtype = compute_dtype_of(config)
+def _graphconv_stack(layers: list, adj: torch.Tensor, x: torch.Tensor,
+                     dtype: torch.dtype, stages: dict | None = None) -> list:
+    """The dense GraphConv stack on a normalised adjacency; every layer's
+    output (``gc0..gcN`` in ``stages``)."""
     acc = accumulate_dtype(dtype)
-    x, valid = _embed(params, config, tokens, lengths)
-    adj = normalize_adjacency(adjacency.to(acc), config.adj_norm).to(dtype)
     gc_outputs = []
-    for layer in params["gc"]:
+    for gi, layer in enumerate(layers):
         # adj and x are already rounded to the compute dtype; their bmm in
         # float32 (float64 for float64 compute) is the reference's
         # preferred_element_type=float32 product.
         agg = torch.bmm(adj.to(acc), x.to(acc))
         x = graphconv_apply(layer, agg.to(dtype), dtype)
         gc_outputs.append(x)
-    return _pooled_fc(params, config, gc_outputs, valid, lengths)
+        if stages is not None:
+            stages[f"gc{gi}"] = x
+    return gc_outputs
+
+
+def _gcn_trunk(params: dict, config: GCNConfig, tokens: torch.Tensor,
+               adjacency: torch.Tensor, lengths: torch.Tensor,
+               stages: dict | None = None) -> torch.Tensor:
+    """Dense-adjacency trunk: one-hot → LM branch → GraphConv stack → pooled
+    FC features (B, fc_dims[-1]), shared by :func:`gcn_forward`,
+    :func:`gcn_forward_logits` and :func:`gcn_forward_stages`. ``stages``
+    (if given) collects the named intermediates."""
+    dtype = compute_dtype_of(config)
+    x, valid = _embed(params, config, tokens, lengths)
+    if stages is not None:
+        stages["embed"] = x
+    adj = normalize_adjacency(adjacency.to(accumulate_dtype(dtype)),
+                              config.adj_norm).to(dtype)
+    gc_outputs = _graphconv_stack(params["gc"], adj, x, dtype, stages)
+    return _pooled_fc(params, config, gc_outputs, valid, lengths, stages)
 
 
 def gcn_forward(params: dict, config: GCNConfig, tokens: torch.Tensor,
@@ -236,8 +322,81 @@ def gcn_forward_logits(params: dict, config: GCNConfig, tokens: torch.Tensor,
     class-0 probabilities of the inference contract.
     """
     pooled = _gcn_trunk(params, config, tokens, adjacency, lengths)
-    logits = _dense(params["head"], pooled)
-    return logits.reshape(*logits.shape[:-1], config.n_labels, 2)
+    return _logits(params["head"], pooled, config.n_labels)
+
+
+def _stages_head(params: dict, n_labels: int, pooled: torch.Tensor,
+                 stages: dict) -> dict:
+    stages["logits"] = _logits(params["head"], pooled, n_labels)
+    stages["scores"] = torch.softmax(stages["logits"], dim=-1)[..., 0]
+    return stages
+
+
+def gcn_forward_stages(params: dict, config: GCNConfig, tokens: torch.Tensor,
+                       adjacency: torch.Tensor, lengths: torch.Tensor) -> dict:
+    """Batched dense GCN forward returning every named stage.
+
+    Keys: ``embed``, ``gc0..gcN``, ``pooled``, ``fc0..fcM``, ``logits``
+    ((B, n_labels, 2) pre-softmax), ``scores`` — the names of the JAX
+    ``gcn_forward_stages`` and of
+    :func:`..onnx_import.gcn_stage_tensors`, so a divergence from the ONNX
+    graph can be pinned to its first stage.
+    """
+    stages: dict = {}
+    pooled = _gcn_trunk(params, config, tokens, adjacency, lengths, stages)
+    return _stages_head(params, config.n_labels, pooled, stages)
+
+
+def gcn_forward_multimode(shared: dict, per_mode: dict, configs: dict,
+                          tokens: torch.Tensor, adjacency: torch.Tensor,
+                          lengths: torch.Tensor) -> dict:
+    """Several GCN modes over one batch, computing the shared trunk once.
+
+    The published models share one frozen LSTM-LM across bp/cc/mf (each
+    ONNX file carries a copy). When the engine finds the ``lm`` subtrees of
+    the loaded modes identical (and ``lm_embed``/``aa_embed`` too, where
+    they are), this runs the LM (and the embedding merge) once per batch,
+    normalises the dense adjacency once, and repeats only the GraphConv, FC
+    and head stacks per mode.
+
+    Args:
+        shared: the common subtrees: ``lm``, and ``lm_embed``/``aa_embed``
+            when those are shared too.
+        per_mode: {mode: the rest of that mode's tree}.
+        configs: {mode: GCNConfig}; they agree on everything but
+            ``n_labels`` (the engine checks this).
+
+    Returns:
+        {mode: (B, n_labels_mode) scores}.
+    """
+    cfg0 = next(iter(configs.values()))
+    dtype = compute_dtype_of(cfg0)
+    acc = accumulate_dtype(dtype)
+    onehot, valid = _masked_onehot(tokens, lengths, acc)
+    adj = normalize_adjacency(adjacency.to(acc), cfg0.adj_norm).to(dtype)
+
+    lm_shared = (lstm_stack_forward(shared["lm"], onehot, lengths,
+                                    compute_dtype=dtype)
+                 if "lm" in shared else None)
+    x_shared = None
+    if lm_shared is not None and "lm_embed" in shared and "aa_embed" in shared:
+        x_shared = _merge_embeddings(shared["lm_embed"], shared["aa_embed"],
+                                     lm_shared, onehot, dtype)
+    out = {}
+    for mode, p in per_mode.items():
+        cfg = configs[mode]
+        x = x_shared
+        if x is None:
+            lm_out = (lm_shared if lm_shared is not None
+                      else lstm_stack_forward(p["lm"], onehot, lengths,
+                                              compute_dtype=dtype))
+            x = _merge_embeddings(shared.get("lm_embed", p.get("lm_embed")),
+                                  shared.get("aa_embed", p.get("aa_embed")),
+                                  lm_out, onehot, dtype)
+        gc_outputs = _graphconv_stack(p["gc"], adj, x, dtype)
+        pooled = _pooled_fc(p, cfg, gc_outputs, valid, lengths)
+        out[mode] = _head_scores(p["head"], pooled, cfg.n_labels)
+    return out
 
 
 def gcn_forward_fused(params: dict, config: GCNConfig, tokens: torch.Tensor,
@@ -266,6 +425,106 @@ def gcn_forward_fused(params: dict, config: GCNConfig, tokens: torch.Tensor,
         gc_outputs.append(x)
     pooled = _pooled_fc(params, config, gc_outputs, valid, lengths)
     return _head_scores(params["head"], pooled, config.n_labels)
+
+
+def same_padding(width: int) -> Tuple[int, int]:
+    """(low, high) padding of a stride-1 'SAME' convolution, as XLA splits
+    it: the odd element of ``width - 1`` goes high (8 → (3, 4))."""
+    return (width - 1) // 2, width // 2
+
+
+def _cnn_trunk(params: dict, config: CNNConfig, tokens: torch.Tensor,
+               lengths: torch.Tensor, stages: dict | None = None):
+    """Conv branches → masked global max-pool → FC stack.
+
+    Always float32, whatever ``config.compute_dtype`` says (the JAX trunk
+    never casts). Zeroing the one-hot past each length makes a padded batch
+    equal, on valid positions, to the unpadded single-protein run; the
+    max-pool sees valid positions only, and a row with none pools to 0.
+    """
+    onehot, valid = _masked_onehot(tokens, lengths, torch.float32)
+    x = onehot.transpose(1, 2)                       # (B, vocab, L)
+    branches = []
+    for conv in params["conv"]:
+        kernel = conv["kernel"]                      # (width, in, out)
+        y = F.conv1d(F.pad(x, same_padding(kernel.shape[0])),
+                     kernel.permute(2, 1, 0))        # (B, out, L)
+        branches.append(y.transpose(1, 2) + conv["bias"])
+    h = torch.relu(torch.cat(branches, dim=-1))
+    h = h.masked_fill(valid[:, :, None] == 0, float("-inf"))
+    pooled = h.amax(dim=1)
+    pooled = torch.where(torch.isfinite(pooled), pooled,
+                         torch.zeros_like(pooled))
+    if stages is not None:
+        stages["pooled"] = pooled
+    return _fc_stack(params["fc"], pooled, stages)
+
+
+def cnn_forward(params: dict, config: CNNConfig, tokens: torch.Tensor,
+                lengths: torch.Tensor) -> torch.Tensor:
+    """Batched sequence-only CNN forward → (B, n_labels) float32 scores."""
+    pooled = _cnn_trunk(params, config, tokens, lengths)
+    return _head_scores(params["head"], pooled, config.n_labels)
+
+
+def cnn_forward_logits(params: dict, config: CNNConfig, tokens: torch.Tensor,
+                       lengths: torch.Tensor) -> torch.Tensor:
+    """Batched CNN forward returning (B, n_labels, 2) pre-softmax logits."""
+    pooled = _cnn_trunk(params, config, tokens, lengths)
+    return _logits(params["head"], pooled, config.n_labels)
+
+
+def cnn_forward_stages(params: dict, config: CNNConfig, tokens: torch.Tensor,
+                       lengths: torch.Tensor) -> dict:
+    """Named CNN stages (``pooled``, ``fc*``, ``logits``, ``scores``), as
+    :func:`gcn_forward_stages`."""
+    stages: dict = {}
+    pooled = _cnn_trunk(params, config, tokens, lengths, stages)
+    return _stages_head(params, config.n_labels, pooled, stages)
+
+
+# ---------------------------------------------------------------------------
+# Single-protein API (reference Predictor.forward_pass)
+# ---------------------------------------------------------------------------
+
+def _single_inputs(params: dict, seqres: str, cmap):
+    """(tokens (1, L), lengths (1,), adjacency (1, L, L) or None) on the
+    device of the parameter tree."""
+    leaf = params["head"]["kernel"]
+    tokens = torch.from_numpy(seq2tokens(seqres)[None, :]).to(leaf.device)
+    lengths = torch.tensor([len(seqres)], dtype=torch.int32,
+                           device=leaf.device)
+    adj = None
+    if cmap is not None:
+        adj = torch.from_numpy(
+            np.asarray(cmap, np.float32)[None]).to(leaf.device)
+    return tokens, lengths, adj
+
+
+def forward_pass_single(params: dict, config, seqres: str,
+                        cmap=None) -> torch.Tensor:
+    """One unpadded protein: the GCN when a (L, L) contact map is given,
+    the CNN otherwise; returns the flat (n_labels,) score vector.
+
+    Runs where the parameter tensors are. For parity checks and one-off use;
+    the batched engine is the production path.
+    """
+    tokens, lengths, adj = _single_inputs(params, seqres, cmap)
+    if adj is not None:
+        scores = gcn_forward(params, config, tokens, adj, lengths)
+    else:
+        scores = cnn_forward(params, config, tokens, lengths)
+    return scores.reshape(-1)
+
+
+def forward_stages_single(params: dict, config, seqres: str,
+                          cmap=None) -> dict:
+    """The named stages of :func:`gcn_forward_stages` (with ``cmap``) or
+    :func:`cnn_forward_stages` (without) for one unpadded protein."""
+    tokens, lengths, adj = _single_inputs(params, seqres, cmap)
+    if adj is not None:
+        return gcn_forward_stages(params, config, tokens, adj, lengths)
+    return cnn_forward_stages(params, config, tokens, lengths)
 
 
 # ---------------------------------------------------------------------------
@@ -324,3 +583,19 @@ class DeepFRIGCN(nn.Module):
     def forward_dense(self, tokens, adjacency, lengths) -> torch.Tensor:
         return gcn_forward(self.tree(), self.config, tokens, adjacency,
                            lengths)
+
+
+class DeepFRICNN(nn.Module):
+    """A CNN parameter tree and its config as an ``nn.Module`` (frozen);
+    ``forward`` runs :func:`cnn_forward`."""
+
+    def __init__(self, config: CNNConfig, params: dict):
+        super().__init__()
+        self.config = config
+        self.params = _to_module(params, False)
+
+    def tree(self) -> dict:
+        return _to_tree(self.params)
+
+    def forward(self, tokens, lengths) -> torch.Tensor:
+        return cnn_forward(self.tree(), self.config, tokens, lengths)

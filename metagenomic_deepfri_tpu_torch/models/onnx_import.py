@@ -1,12 +1,13 @@
-"""DeepFRI GCN weight import from ONNX graphs, and export back to ONNX.
+"""DeepFRI weight import from ONNX graphs, export back to ONNX, and the
+graph executor that is the parity oracle.
 
-The GCN half of ``metagenomic_deepfri_tpu/models/onnx_import.py``, copied
-without jax (numpy only): graph normalisation, input roles, LSTM gate-order
-conversion, topological weight matching, :func:`import_gcn_params`,
-structural detection (embedding merge, pooling, label count) and
-:func:`export_gcn_to_onnx`. The JAX module's ``OnnxExecutor`` (the parity
-oracle), the CNN import and export and the per-stage tensor maps are not
-ported yet.
+``metagenomic_deepfri_tpu/models/onnx_import.py`` copied without jax (numpy
+only): graph normalisation, input roles, LSTM gate-order conversion,
+topological weight matching, :func:`import_gcn_params` and
+:func:`import_cnn_params`, structural detection (embedding merge, pooling,
+label count), :func:`export_gcn_to_onnx` and :func:`export_cnn_to_onnx`,
+the per-stage tensor maps, and :class:`OnnxExecutor`, which evaluates a raw
+graph on the host and shares no code with the port's model modules.
 
 Parameter trees are numpy, in the layout the port keeps (kernels (in, out);
 LSTM ``kernel`` (in, 4H), ``recurrent`` (H, 4H), ``bias`` (4H,)).
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from metagenomic_deepfri_tpu_torch.models.deepfri import GCNConfig
+from metagenomic_deepfri_tpu_torch.models.deepfri import CNNConfig, GCNConfig
 from metagenomic_deepfri_tpu_torch.models.onnx_reader import (DTYPE_MAP,
                                                               OnnxGraph,
                                                               OnnxNode,
@@ -311,6 +312,374 @@ def lstm_params_to_onnx(params: dict) -> tuple[np.ndarray, np.ndarray,
 
 
 # ---------------------------------------------------------------------------
+# Eager graph executor
+# ---------------------------------------------------------------------------
+
+class OnnxExecutor:
+    """Eagerly evaluate an :class:`OnnxGraph` on named feeds, on the host.
+
+    Returns all graph outputs (list), mirroring
+    ``onnxruntime.InferenceSession.run(None, feeds)`` (reference
+    ``predict.pyx:98``). Intermediate activations can be captured via
+    ``trace=True`` for per-layer parity checks. Every op is numpy; the
+    executor shares no code with the port's model modules, so it stays an
+    independent oracle for them.
+    """
+
+    def __init__(self, graph: OnnxGraph):
+        self.graph = graph
+        self.input_names = [vi.name for vi in graph.inputs]
+
+    def run(self, feeds: dict, trace: bool = False):
+        env: dict[str, np.ndarray] = {}
+        for name, arr in self.graph.initializers.items():
+            env[name] = np.asarray(arr)
+        for name, arr in feeds.items():
+            env[name] = np.asarray(arr)
+        traced = {}
+        for node in self.graph.nodes:
+            outs = self._eval(node, env)
+            for name, val in zip(node.outputs, outs):
+                if name:
+                    env[name] = val
+                    if trace:
+                        traced[name] = val
+        results = [env[vi.name] for vi in self.graph.outputs]
+        if trace:
+            return results, traced
+        return results
+
+    # -- op registry --------------------------------------------------------
+
+    def _eval(self, node: OnnxNode, env: dict):
+        op = node.op_type
+        attrs = node.attributes
+        x = [env[i] if i else None for i in node.inputs]
+
+        if op == "MatMul":
+            return [np.matmul(x[0], x[1])]
+        if op == "Gemm":
+            a = x[0].T if attrs.get("transA", 0) else x[0]
+            b = x[1].T if attrs.get("transB", 0) else x[1]
+            y = attrs.get("alpha", 1.0) * (a @ b)
+            if len(x) > 2 and x[2] is not None:
+                y = y + attrs.get("beta", 1.0) * x[2]
+            return [np.asarray(y)]
+        if op == "Add":
+            return [x[0] + x[1]]
+        if op == "Sub":
+            return [x[0] - x[1]]
+        if op == "Mul":
+            return [x[0] * x[1]]
+        if op == "Div":
+            return [x[0] / x[1]]
+        if op == "Relu":
+            return [np.maximum(x[0], 0)]
+        if op == "Sigmoid":
+            return [_sigmoid(x[0])]
+        if op == "Tanh":
+            return [np.tanh(x[0])]
+        if op == "Sqrt":
+            return [np.sqrt(x[0])]
+        if op == "Reciprocal":
+            return [1.0 / x[0]]
+        if op == "Max":
+            y = x[0]
+            for other in x[1:]:
+                y = np.maximum(y, other)
+            return [y]
+        if op == "Softmax":
+            return [_softmax(x[0], attrs.get("axis", -1))]
+        if op == "Concat":
+            return [np.concatenate(x, axis=attrs["axis"])]
+        if op == "Reshape":
+            shape = [int(d) for d in x[1]]
+            return [x[0].reshape(shape)]
+        if op == "Transpose":
+            return [np.transpose(x[0], attrs.get("perm"))]
+        if op == "Squeeze":
+            axes = attrs.get("axes")
+            if axes is None and len(x) > 1 and x[1] is not None:
+                axes = [int(a) for a in x[1]]
+            return [np.squeeze(x[0], axis=tuple(axes) if axes else None)]
+        if op == "Unsqueeze":
+            axes = attrs.get("axes")
+            if axes is None and len(x) > 1 and x[1] is not None:
+                axes = [int(a) for a in x[1]]
+            y = x[0]
+            for a in sorted(axes):
+                y = np.expand_dims(y, a)
+            return [y]
+        if op == "ReduceSum":
+            axes = attrs.get("axes")
+            if axes is None and len(x) > 1 and x[1] is not None:
+                axes = [int(a) for a in x[1]]
+            keep = bool(attrs.get("keepdims", 1))
+            return [np.sum(x[0], axis=tuple(axes) if axes else None,
+                           keepdims=keep)]
+        if op == "ReduceMax":
+            axes = attrs.get("axes")
+            if axes is None and len(x) > 1 and x[1] is not None:
+                axes = [int(a) for a in x[1]]
+            keep = bool(attrs.get("keepdims", 1))
+            return [np.max(x[0], axis=tuple(axes) if axes else None,
+                           keepdims=keep)]
+        if op == "ReduceMean":
+            axes = attrs.get("axes")
+            if axes is None and len(x) > 1 and x[1] is not None:
+                axes = [int(a) for a in x[1]]
+            keep = bool(attrs.get("keepdims", 1))
+            return [np.mean(x[0], axis=tuple(axes) if axes else None,
+                            keepdims=keep)]
+        if op == "Identity":
+            return [x[0]]
+        if op == "Cast":
+            return [x[0].astype(DTYPE_MAP[attrs["to"]])]
+        if op == "Constant":
+            return [np.asarray(attrs["value"])]
+        if op == "Shape":
+            # opset 15 supports start/end attrs (negative = from the back)
+            dims = np.asarray(x[0].shape, dtype=np.int64)
+            start = attrs.get("start", 0)
+            end = attrs.get("end")
+            return [dims[start:end]]
+        if op == "Split":
+            axis = attrs.get("axis", 0)
+            sizes = attrs.get("split")
+            if sizes is None and len(x) > 1 and x[1] is not None:
+                sizes = [int(s) for s in x[1]]
+            if sizes is None:
+                n_out = len(node.outputs)
+                return list(np.split(x[0], n_out, axis=axis))
+            points = np.cumsum(sizes)[:-1]
+            return list(np.split(x[0], points, axis=axis))
+        if op == "Expand":
+            shape = tuple(int(d) for d in x[1])
+            out_shape = np.broadcast_shapes(x[0].shape, shape)
+            return [np.broadcast_to(x[0], out_shape)]
+        if op == "Where":
+            return [np.where(x[0], x[1], x[2])]
+        if op == "Pad":
+            mode = attrs.get("mode", b"constant")
+            if isinstance(mode, bytes):
+                mode = mode.decode()
+            pads = ([int(p) for p in x[1]] if len(x) > 1 and x[1] is not None
+                    else [int(p) for p in attrs.get("pads", [])])
+            rank = x[0].ndim
+            widths = [(pads[i], pads[i + rank]) for i in range(rank)]
+            if mode == "constant":
+                cval = (float(x[2]) if len(x) > 2 and x[2] is not None
+                        else attrs.get("value", 0.0))
+                return [np.pad(x[0], widths, constant_values=cval)]
+            if mode in ("reflect", "edge"):
+                return [np.pad(x[0], widths, mode=mode)]
+            raise NotImplementedError(f"Pad mode {mode}")
+        if op == "ConstantOfShape":
+            shape = tuple(int(d) for d in x[0])
+            value = attrs.get("value")
+            if value is None:
+                return [np.zeros(shape, np.float32)]
+            value = np.asarray(value)
+            return [np.full(shape, value.reshape(-1)[0], dtype=value.dtype)]
+        if op == "Range":
+            return [np.arange(x[0].item(), x[1].item(), x[2].item(),
+                              dtype=np.asarray(x[0]).dtype)]
+        if op == "Equal":
+            return [x[0] == x[1]]
+        if op == "Greater":
+            return [x[0] > x[1]]
+        if op == "Less":
+            return [x[0] < x[1]]
+        if op == "Not":
+            return [~np.asarray(x[0], bool)]
+        if op == "And":
+            return [np.logical_and(x[0], x[1])]
+        if op == "Or":
+            return [np.logical_or(x[0], x[1])]
+        if op == "Exp":
+            return [np.exp(x[0])]
+        if op == "Pow":
+            return [np.power(x[0], x[1])]
+        if op == "Neg":
+            return [-x[0]]
+        if op == "Min":
+            y = x[0]
+            for other in x[1:]:
+                y = np.minimum(y, other)
+            return [y]
+        if op == "Clip":
+            lo = x[1] if len(x) > 1 and x[1] is not None else attrs.get("min")
+            hi = x[2] if len(x) > 2 and x[2] is not None else attrs.get("max")
+            return [np.clip(x[0], lo, hi)]
+        if op == "Flatten":
+            axis = attrs.get("axis", 1)
+            lead = int(np.prod(x[0].shape[:axis], dtype=np.int64))
+            return [x[0].reshape(lead, -1)]
+        if op == "Tile":
+            return [np.tile(x[0], [int(r) for r in x[1]])]
+        if op == "Gather":
+            axis = attrs.get("axis", 0)
+            return [np.take(x[0], x[1].astype(np.int64), axis=axis)]
+        if op == "Slice":
+            starts = [int(v) for v in x[1]]
+            ends = [int(v) for v in x[2]]
+            axes = ([int(v) for v in x[3]] if len(x) > 3 and x[3] is not None
+                    else list(range(len(starts))))
+            steps = ([int(v) for v in x[4]] if len(x) > 4 and x[4] is not None
+                     else [1] * len(starts))
+            slices = [slice(None)] * x[0].ndim
+            for s, e, a, st in zip(starts, ends, axes, steps):
+                slices[a] = slice(s, e, st)
+            return [x[0][tuple(slices)]]
+        if op == "ReverseSequence":
+            t_ax = attrs.get("time_axis", 0)
+            b_ax = attrs.get("batch_axis", 1)
+            lens = np.asarray(x[1]).astype(np.int64)
+            y = np.moveaxis(np.asarray(x[0]), (t_ax, b_ax), (0, 1)).copy()
+            for b in range(y.shape[1]):
+                n = int(lens[b])
+                y[:n, b] = y[:n, b][::-1]
+            return [np.moveaxis(y, (0, 1), (t_ax, b_ax))]
+        if op == "Conv":
+            return [self._conv(x, attrs)]
+        if op == "LSTM":
+            return self._lstm(x, attrs)
+        if op == "GlobalMaxPool":
+            return [np.max(x[0], axis=tuple(range(2, x[0].ndim)),
+                           keepdims=True)]
+        raise NotImplementedError(f"ONNX op not supported: {op}")
+
+    def _conv(self, x, attrs):
+        """1-D/2-D Conv with NCW/NCHW layout (ONNX convention), float32.
+
+        ``auto_pad`` SAME_UPPER and SAME_LOWER both pad as XLA's "SAME"
+        does (the odd element high), as the JAX package's executor does.
+        """
+        data = np.asarray(x[0], np.float32)
+        weight = np.asarray(x[1], np.float32)
+        bias = x[2] if len(x) > 2 else None
+        spatial = data.ndim - 2
+        strides = attrs.get("strides", [1] * spatial)
+        pads = attrs.get("pads", [0] * (2 * spatial))
+        auto_pad = attrs.get("auto_pad", b"NOTSET")
+        if isinstance(auto_pad, bytes):
+            auto_pad = auto_pad.decode()
+        widths = []
+        for i in range(spatial):
+            if auto_pad in ("SAME_UPPER", "SAME_LOWER"):
+                n, k, s = data.shape[2 + i], weight.shape[2 + i], strides[i]
+                total = max((-(-n // s) - 1) * s + k - n, 0)
+                widths.append((total // 2, total - total // 2))
+            else:
+                widths.append((pads[i], pads[i + spatial]))
+        data = np.pad(data, [(0, 0), (0, 0)] + widths)
+        # (N, C, *out, *k) windows, strided, against (O, C, *k) weights.
+        win = np.lib.stride_tricks.sliding_window_view(
+            data, weight.shape[2:], axis=tuple(range(2, 2 + spatial)))
+        win = win[(slice(None), slice(None))
+                  + tuple(slice(None, None, s) for s in strides)]
+        win = np.moveaxis(win, 1, 1 + spatial)       # (N, *out, C, *k)
+        y = np.tensordot(win, weight, axes=(
+            [1 + spatial] + [2 + spatial + a for a in range(spatial)],
+            [1] + [2 + a for a in range(spatial)]))  # (N, *out, O)
+        y = np.moveaxis(y, -1, 1)
+        if bias is not None:
+            y = y + np.asarray(bias).reshape((1, -1) + (1,) * spatial)
+        return y.astype(np.float32)
+
+    def _lstm(self, x, attrs):
+        """ONNX LSTM with full input-list semantics.
+
+        Supports forward / reverse / bidirectional direction, optional
+        ``sequence_lens`` (input 4: Y zeroed past each length, final states
+        taken at the last valid step, reverse direction processes the valid
+        prefix back-to-front — the pattern tf2onnx emits for Keras LSTM) and
+        optional ``initial_h``/``initial_c`` (inputs 5/6). Non-default
+        activations / clip / layout=1 raise (the DeepFRI exports use the
+        defaults).
+        """
+        X, W, R = x[0], x[1], x[2]
+        B = x[3] if len(x) > 3 else None
+        seq_lens = x[4] if len(x) > 4 else None
+        init_h = x[5] if len(x) > 5 else None
+        init_c = x[6] if len(x) > 6 else None
+        hidden = attrs["hidden_size"]
+        acts = attrs.get("activations")
+        if acts:
+            names = [a.decode().lower() if isinstance(a, bytes) else
+                     str(a).lower() for a in acts]
+            if names != ["sigmoid", "tanh", "tanh"] * (len(names) // 3):
+                raise NotImplementedError(
+                    f"Non-default LSTM activations: {names}")
+        if attrs.get("clip") is not None:
+            raise NotImplementedError("LSTM clip attribute not supported")
+        if attrs.get("layout", 0):
+            raise NotImplementedError("LSTM layout=1 not supported")
+        direction = attrs.get("direction", b"forward")
+        if isinstance(direction, bytes):
+            direction = direction.decode()
+        num_dir = W.shape[0]
+        seq_len, batch, _ = X.shape
+        if B is None:
+            B = np.zeros((num_dir, 8 * hidden), np.float32)
+        lens = (np.full((batch,), seq_len, np.int64) if seq_lens is None
+                else np.asarray(seq_lens).astype(np.int64).reshape(batch))
+        h0 = (np.zeros((num_dir, batch, hidden), np.float32)
+              if init_h is None else np.asarray(init_h, np.float32))
+        c0 = (np.zeros((num_dir, batch, hidden), np.float32)
+              if init_c is None else np.asarray(init_c, np.float32))
+
+        def run_dir(d, reverse):
+            w, r = W[d], R[d]
+            wb, rb = B[d][:4 * hidden], B[d][4 * hidden:]
+            ys = np.zeros((seq_len, batch, hidden), np.float32)
+            h_fin = np.zeros((batch, hidden), np.float32)
+            c_fin = np.zeros((batch, hidden), np.float32)
+            for b in range(batch):
+                T = int(lens[b])
+                h = h0[d, b].copy()
+                c = c0[d, b].copy()
+                order = range(T - 1, -1, -1) if reverse else range(T)
+                for t in order:
+                    gates = X[t, b] @ w.T + h @ r.T + wb + rb
+                    i = _sigmoid(gates[:hidden])
+                    o = _sigmoid(gates[hidden:2 * hidden])
+                    f = _sigmoid(gates[2 * hidden:3 * hidden])
+                    g = np.tanh(gates[3 * hidden:])
+                    c = f * c + i * g
+                    h = o * np.tanh(c)
+                    ys[t, b] = h
+                h_fin[b] = h
+                c_fin[b] = c
+            return ys, h_fin, c_fin
+
+        dirs = []
+        finals_h, finals_c = [], []
+        for d in range(num_dir):
+            reverse = (direction == "reverse") or (d == 1)
+            ys, h, c = run_dir(d, reverse)
+            dirs.append(ys)
+            finals_h.append(h)
+            finals_c.append(c)
+        Y = np.stack(dirs, axis=1)               # (seq, num_dir, batch, H)
+        Y_h = np.stack(finals_h, axis=0)
+        Y_c = np.stack(finals_c, axis=0)
+        return [Y, Y_h, Y_c]
+
+
+def _sigmoid(v):
+    """Logistic function without overflow: exp of a non-positive number."""
+    e = np.exp(-np.abs(v))
+    return np.where(v >= 0, 1.0 / (1.0 + e), e / (1.0 + e))
+
+
+def _softmax(v, axis: int):
+    """Softmax along ``axis``, the maximum subtracted first."""
+    e = np.exp(v - np.max(v, axis=axis, keepdims=True))
+    return e / np.sum(e, axis=axis, keepdims=True)
+
+
+# ---------------------------------------------------------------------------
 # Export (our params → ONNX)
 # ---------------------------------------------------------------------------
 
@@ -400,6 +769,63 @@ def export_gcn_to_onnx(params: dict, config: GCNConfig, path: str):
               inputs=[("A", _F32, [1, "L", "L"]), ("S", _F32, [1, "L", 26])],
               outputs=[("labels", _F32, [1, config.n_labels, 2])],
               graph_name="deepfri_gcn")
+
+
+def export_cnn_to_onnx(params: dict, config: CNNConfig, path: str):
+    """Serialise a CNN parameter tree as an ONNX graph (input ``S`` only)."""
+    nodes = []
+    init: dict[str, np.ndarray] = {}
+    # ONNX Conv is NCW: transpose (1, L, 26) → (1, 26, L)
+    nodes.append(OnnxNode("Transpose", ["S"], ["s_ncw"], "to_ncw",
+                          {"perm": [0, 2, 1]}))
+    branch_outs = []
+    for ci, conv in enumerate(params["conv"]):
+        # ours (k, in, out) → ONNX (out, in, k)
+        init[f"conv{ci}_w"] = np.transpose(
+            np.asarray(conv["kernel"], np.float32), (2, 1, 0))
+        init[f"conv{ci}_b"] = np.asarray(conv["bias"], np.float32)
+        nodes.append(OnnxNode(
+            "Conv", ["s_ncw", f"conv{ci}_w", f"conv{ci}_b"],
+            [f"conv{ci}_out"], f"conv{ci}",
+            {"auto_pad": b"SAME_UPPER"}))
+        branch_outs.append(f"conv{ci}_out")
+    nodes.append(OnnxNode("Concat", branch_outs, ["conv_concat"],
+                          "conv_concat", {"axis": 1}))
+    nodes.append(OnnxNode("Relu", ["conv_concat"], ["conv_act"], "conv_relu"))
+    nodes.append(OnnxNode("GlobalMaxPool", ["conv_act"], ["pool_ncw"],
+                          "global_pool"))
+    init["sq_axes"] = np.asarray([2], np.int64)
+    nodes.append(OnnxNode("Squeeze", ["pool_ncw", "sq_axes"], ["pooled"],
+                          "pool_squeeze"))
+    def dense(prefix, layer, x, relu):
+        init[f"{prefix}_k"] = np.asarray(layer["kernel"], np.float32)
+        nodes.append(OnnxNode("MatMul", [x, f"{prefix}_k"],
+                              [f"{prefix}_lin"], prefix))
+        cur = f"{prefix}_lin"
+        if "bias" in layer:
+            init[f"{prefix}_b"] = np.asarray(layer["bias"], np.float32)
+            nodes.append(OnnxNode("Add", [cur, f"{prefix}_b"],
+                                  [f"{prefix}_biased"], f"{prefix}_bias"))
+            cur = f"{prefix}_biased"
+        if relu:
+            nodes.append(OnnxNode("Relu", [cur], [f"{prefix}_out"],
+                                  f"{prefix}_relu"))
+            cur = f"{prefix}_out"
+        return cur
+
+    prev = "pooled"
+    for fi, layer in enumerate(params["fc"]):
+        prev = dense(f"fc{fi}", layer, prev, relu=True)
+    head_out = dense("head", params["head"], prev, relu=False)
+    init["out_shape"] = np.asarray([-1, config.n_labels, 2], np.int64)
+    nodes.append(OnnxNode("Reshape", [head_out, "out_shape"],
+                          ["head_reshaped"], "head_reshape"))
+    nodes.append(OnnxNode("Softmax", ["head_reshaped"], ["labels"],
+                          "head_softmax", {"axis": -1}))
+    save_onnx(path, nodes, init,
+              inputs=[("S", _F32, [1, "L", 26])],
+              outputs=[("labels", _F32, [1, config.n_labels, 2])],
+              graph_name="deepfri_cnn")
 
 
 # ---------------------------------------------------------------------------
@@ -573,8 +999,55 @@ def import_gcn_params(graph: OnnxGraph, config: GCNConfig) -> dict:
     return params
 
 
+def import_cnn_params(graph: OnnxGraph, config: CNNConfig) -> dict:
+    conv_nodes = [n for n in graph.nodes if n.op_type == "Conv"]
+    if len(conv_nodes) != len(config.conv_kernels):
+        raise ValueError(
+            f"Expected {len(config.conv_kernels)} Conv branches, found "
+            f"{len(conv_nodes)}")
+    params = {"conv": [], "fc": []}
+    # Match conv branches by kernel width.
+    by_width = {}
+    for node in conv_nodes:
+        w = np.asarray(graph.initializers[node.inputs[1]], np.float32)
+        b = (np.asarray(graph.initializers[node.inputs[2]], np.float32)
+             if len(node.inputs) > 2 else np.zeros(w.shape[0], np.float32))
+        by_width.setdefault(w.shape[-1], []).append((w, b))
+    for ksize in config.conv_kernels:
+        if ksize not in by_width or not by_width[ksize]:
+            raise ValueError(f"No Conv branch with kernel size {ksize}")
+        w, b = by_width[ksize].pop(0)
+        params["conv"].append({
+            "kernel": np.ascontiguousarray(np.transpose(w, (2, 1, 0))),
+            "bias": np.ascontiguousarray(b)})
+
+    entries = _topo_matmul_weights(graph)
+    consumed: set = set()
+
+    def take(in_dim, out_dim, what):
+        w, b, bn = _take_matmul(entries, in_dim, out_dim, what)
+        if bn is not None:
+            consumed.add(bn)
+        return w, b
+
+    in_dim = config.conv_filters * len(config.conv_kernels)
+    for d in config.fc_dims:
+        k, b = take(in_dim, d, "FC")
+        params["fc"].append(_layer_dict(k, b))
+        in_dim = d
+    k, b = take(in_dim, 2 * config.n_labels, "head")
+    params["head"] = _layer_dict(k, b)
+    if entries:
+        raise ValueError(
+            f"ONNX graph contains {len(entries)} dense weight(s) the "
+            f"inferred CNN architecture does not account for (shapes "
+            f"{[e[1].shape for e in entries]}) — refusing a partial import.")
+    _assert_biases_consumed(graph, consumed)
+    return params
+
+
 # ---------------------------------------------------------------------------
-# Structural graph analysis (merge form, pooling mode, label count)
+# Structural graph analysis (merge form, pooling mode, stage tensors)
 # ---------------------------------------------------------------------------
 
 def _reduce_axes(node: OnnxNode, graph: OnnxGraph):
@@ -639,6 +1112,97 @@ def detect_gcn_pool(graph: OnnxGraph) -> str:
         if src is not None and src.op_type == "Concat":
             return "mean" if node.op_type == "ReduceMean" else "sum"
     return "sum"
+
+
+def _walk_fc_stages(graph: OnnxGraph, consumers, start: str):
+    """Follow the pooled tensor through the FC stack; yields per-layer
+    post-ReLU tensor names, stopping at the (non-ReLU'd) head."""
+    names = []
+    cur = start
+    while True:
+        mats = [n for n in consumers.get(cur, [])
+                if n.op_type in ("MatMul", "Gemm")]
+        if not mats:
+            break
+        out = mats[0].outputs[0]
+        adds = [n for n in consumers.get(out, []) if n.op_type == "Add"]
+        if adds:
+            out = adds[0].outputs[0]
+        relus = [n for n in consumers.get(out, []) if n.op_type == "Relu"]
+        if not relus:
+            break
+        cur = relus[0].outputs[0]
+        names.append(cur)
+    return names
+
+
+def gcn_stage_tensors(graph: OnnxGraph) -> list:
+    """Ordered [(stage, onnx_tensor_name)] matching the named stages of
+    :func:`..deepfri.gcn_forward_stages`.
+
+    Resolution is structural on a :func:`normalize_graph`-ed graph;
+    normalisation never renames a kept node's outputs, so the returned names
+    also index the raw graph's execution trace.
+    """
+    producers = _producer_map(graph)
+    consumers = _consumer_map(graph)
+    pool_node = concat = None
+    for node in graph.nodes:
+        if node.op_type in ("ReduceSum", "ReduceMean") \
+                and _reduce_axes(node, graph) == [1]:
+            src = producers.get(node.inputs[0])
+            if src is not None and src.op_type == "Concat":
+                pool_node, concat = node, src
+                break
+    if pool_node is None:
+        raise ValueError("No GraphConv pooling Reduce found in graph")
+    stages = []
+    # embed = the feature operand of the first layer's aggregation MatMul
+    lin = producers[concat.inputs[0]]              # Relu
+    lin = producers[lin.inputs[0]]                 # MatMul or bias Add
+    if lin.op_type == "Add":
+        data = [i for i in lin.inputs if i not in graph.initializers]
+        lin = producers[data[0]]
+    agg = producers[lin.inputs[0]]                 # MatMul(A_used, h)
+    stages.append(("embed", agg.inputs[1]))
+    for gi, t in enumerate(concat.inputs):
+        stages.append((f"gc{gi}", t))
+    stages.append(("pooled", pool_node.outputs[0]))
+    for fi, t in enumerate(_walk_fc_stages(graph, consumers,
+                                           pool_node.outputs[0])):
+        stages.append((f"fc{fi}", t))
+    softmax = next(n for n in graph.nodes if n.op_type == "Softmax")
+    stages.append(("logits", softmax.inputs[0]))
+    stages.append(("scores", softmax.outputs[0]))
+    return stages
+
+
+def cnn_stage_tensors(graph: OnnxGraph) -> list:
+    """Ordered [(stage, onnx_tensor_name)] matching
+    :func:`..deepfri.cnn_forward_stages` (pooled → fc* → logits → scores)."""
+    producers = _producer_map(graph)
+    consumers = _consumer_map(graph)
+    pooled = None
+    for node in graph.nodes:
+        if node.op_type == "ReduceMax" and _reduce_axes(node, graph) == [1]:
+            pooled = node.outputs[0]
+            break
+        if node.op_type == "GlobalMaxPool":
+            pooled = node.outputs[0]
+            sq = [n for n in consumers.get(pooled, [])
+                  if n.op_type in ("Squeeze", "Reshape", "Flatten")]
+            if sq:
+                pooled = sq[0].outputs[0]
+            break
+    if pooled is None:
+        raise ValueError("No global max-pool found in CNN graph")
+    stages = [("pooled", pooled)]
+    for fi, t in enumerate(_walk_fc_stages(graph, consumers, pooled)):
+        stages.append((f"fc{fi}", t))
+    softmax = next(n for n in graph.nodes if n.op_type == "Softmax")
+    stages.append(("logits", softmax.inputs[0]))
+    stages.append(("scores", softmax.outputs[0]))
+    return stages
 
 
 def infer_n_labels(graph: OnnxGraph) -> int:

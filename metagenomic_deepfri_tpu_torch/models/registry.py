@@ -1,35 +1,37 @@
 """Model registry of the port: ONNX weights or checkpoints → model handles.
 
-The GCN half of ``metagenomic_deepfri_tpu/models/registry.py``, copied
-without jax: architecture inference from an ONNX graph
-(:func:`infer_gcn_config`, :func:`detect_adj_norm`), :func:`load_model_handle`
-for ``net_type="gcn"``, and the native checkpoint format (``.npz`` plus a
+``metagenomic_deepfri_tpu/models/registry.py`` copied without jax:
+architecture inference from an ONNX graph (:func:`infer_gcn_config`,
+:func:`detect_adj_norm`, :func:`infer_cnn_config`),
+:func:`load_model_handle` for GCNs and CNNs, :func:`load_models` for a whole
+weights folder, and the native checkpoint format (``.npz`` plus a
 ``_config.json`` sidecar), whose files are interchangeable with the JAX
 package's. Parameter trees come back as numpy; the engine and the trainer
-place them on their device. CNN weights raise ``NotImplementedError`` until
-the CNN slice of the port lands.
+place them on their device.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 from dataclasses import asdict
 from pathlib import Path
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
 from metagenomic_deepfri_tpu_torch.batching.engine import ModelHandle
-from metagenomic_deepfri_tpu_torch.models.deepfri import GCNConfig
+from metagenomic_deepfri_tpu_torch.models.deepfri import CNNConfig, GCNConfig
 from metagenomic_deepfri_tpu_torch.models.onnx_import import (
     _topo_matmul_weights, collect_lstm_layers, detect_embedding_merge,
-    detect_gcn_pool, graph_input_roles, import_gcn_params, normalize_graph)
+    detect_gcn_pool, graph_input_roles, import_cnn_params, import_gcn_params,
+    normalize_graph)
 from metagenomic_deepfri_tpu_torch.models.onnx_reader import (OnnxGraph,
                                                               load_onnx)
-from metagenomic_deepfri_tpu_torch.utils import get_json_values
+from metagenomic_deepfri_tpu_torch.utils import (get_json_values,
+                                                 load_deepfri_config)
 
-_CNN_NOT_PORTED = ("CNN models are not ported yet (the CNN slice of the "
-                   "PyTorch port); only net_type='gcn' loads")
+logger = logging.getLogger(__name__)
 
 
 # ---------------------------------------------------------------------------
@@ -41,6 +43,22 @@ def _matmul_weight_shapes(graph: OnnxGraph) -> List[Tuple[int, int]]:
     # transA/transB orientation is applied identically in both places.
     return [tuple(w.shape) for _node, w, _b, _bn in
             _topo_matmul_weights(graph)]
+
+
+def _search_fc(pool: list, cur: int, head_width: int, fc=()):
+    """The FC widths that consume ``pool`` exactly as a chain from width
+    ``cur`` ending in the (·, head_width) head, or None; backtracks over
+    the consumption order."""
+    if len(pool) == 1 and pool[0] == (cur, head_width):
+        return list(fc)
+    for s in list(dict.fromkeys(pool)):
+        if s[0] == cur:
+            rest = list(pool)
+            rest.remove(s)
+            r = _search_fc(rest, s[1], head_width, (*fc, s[1]))
+            if r is not None:
+                return r
+    return None
 
 
 def infer_gcn_config(graph: OnnxGraph, n_labels: int,
@@ -90,21 +108,9 @@ def infer_gcn_config(graph: OnnxGraph, n_labels: int,
     # A chain layer's width may legitimately equal 2·n_labels, so no shape
     # is excluded a priori; the terminal condition (exactly the head left)
     # disambiguates, with backtracking over consumption order.
-    def search_fc(pool, cur, fc):
-        if len(pool) == 1 and pool[0] == (cur, 2 * n_labels):
-            return list(fc)
-        for s in list(dict.fromkeys(pool)):
-            if s[0] == cur:
-                rest = list(pool)
-                rest.remove(s)
-                r = search_fc(rest, s[1], fc + [s[1]])
-                if r is not None:
-                    return r
-        return None
-
     def search_gc(pool, cur, gc):
         if gc:
-            fc = search_fc(pool, sum(gc), [])
+            fc = _search_fc(pool, sum(gc), 2 * n_labels)
             if fc is not None:
                 return list(gc), fc
         for s in list(dict.fromkeys(pool)):
@@ -225,31 +231,89 @@ def detect_adj_norm(graph: OnnxGraph) -> str:
     return "row" if recombined else "none"
 
 
+def infer_cnn_config(graph: OnnxGraph, n_labels: int,
+                     vocab: int = 26) -> CNNConfig:
+    """Derive CNNConfig hyperparameters from graph structure: kernel widths
+    and filter count from the Conv weights (ONNX (out, in, width)), the FC
+    chain by following shapes from the pooled width to the 2·n_labels
+    head."""
+    conv_nodes = [n for n in graph.nodes if n.op_type == "Conv"]
+    if not conv_nodes:
+        raise ValueError("No Conv nodes found — not a DeepFRI CNN graph?")
+    kernels = []
+    filters = None
+    for node in conv_nodes:
+        w = graph.initializers[node.inputs[1]]
+        kernels.append(int(w.shape[-1]))
+        filters = int(w.shape[0])
+    pool = list(_matmul_weight_shapes(graph))
+    fc_dims = _search_fc(pool, filters * len(kernels), 2 * n_labels)
+    if fc_dims is None:
+        raise ValueError(
+            f"Could not decompose CNN weight shapes {pool} into fc/head "
+            f"chains from {filters * len(kernels)}, n_labels={n_labels}")
+    return CNNConfig(n_labels=n_labels, vocab=vocab, conv_filters=filters,
+                     conv_kernels=tuple(kernels), fc_dims=tuple(fc_dims))
+
+
 # ---------------------------------------------------------------------------
 # Loading
 # ---------------------------------------------------------------------------
 
+_CONFIG_CLASSES = {"gcn": GCNConfig, "cnn": CNNConfig}
+
+
 def load_model_handle(net_type: str, mode: str, model_path,
                       params_json) -> ModelHandle:
-    """Load one GCN (ONNX or native checkpoint) into a ModelHandle."""
-    if net_type != "gcn":
-        raise NotImplementedError(_CNN_NOT_PORTED)
+    """Load one network (ONNX or native checkpoint) into a ModelHandle."""
+    if net_type not in _CONFIG_CLASSES:
+        raise ValueError(f"net_type must be 'gcn' or 'cnn', got {net_type!r}")
     goterms = get_json_values(params_json, "goterms")
     gonames = get_json_values(params_json, "gonames")
     n_labels = len(goterms)
     model_path = str(model_path)
     if model_path.endswith(".npz"):
         config, params = load_checkpoint(model_path)
+        if not isinstance(config, _CONFIG_CLASSES[net_type]):
+            raise ValueError(f"{model_path} holds a {type(config).__name__} "
+                             f"checkpoint, not a {net_type} one")
     else:
         # Fold exporter noise (Constant nodes, Identity chains, Cast/
         # Transpose-wrapped weights — the tf2onnx opset-15 pattern of the
         # published weights, reference weight_convert/convert_models2onnx.py)
         # before structural inference and weight import.
         graph = normalize_graph(load_onnx(model_path))
-        config = infer_gcn_config(graph, n_labels)
-        params = import_gcn_params(graph, config)
+        if net_type == "gcn":
+            config = infer_gcn_config(graph, n_labels)
+            params = import_gcn_params(graph, config)
+        else:
+            config = infer_cnn_config(graph, n_labels)
+            params = import_cnn_params(graph, config)
     return ModelHandle(net_type=net_type, mode=mode, config=config,
                        params=params, goterms=goterms, gonames=gonames)
+
+
+def load_models(weights_dir,
+                modes: List[str]) -> Tuple[Dict[str, ModelHandle],
+                                           Dict[str, ModelHandle], dict]:
+    """Load every requested mode's GCN and CNN from a weights folder.
+
+    Returns ``(gcn_handles, cnn_handles, models_config)``; a mode the
+    folder's ``model_config.json`` does not name for a network is absent
+    from that network's handles.
+    """
+    models_config = load_deepfri_config(weights_dir)
+    gcn, cnn = {}, {}
+    for mode in modes:
+        for net, bag in (("gcn", gcn), ("cnn", cnn)):
+            if mode not in models_config[net]:
+                continue
+            model_path = models_config[net][mode]
+            params_json = str(Path(model_path).with_suffix("")) + \
+                "_model_params.json"
+            logger.info("Loading %s/%s from %s", net, mode, model_path)
+            bag[mode] = load_model_handle(net, mode, model_path, params_json)
+    return gcn, cnn, models_config
 
 
 # ---------------------------------------------------------------------------
@@ -308,9 +372,9 @@ def load_checkpoint(path):
     cfg_path = str(Path(path).with_suffix("")) + "_config.json"
     with open(cfg_path, "r", encoding="utf-8") as f:
         cfg = json.load(f)
-    cls = cfg.pop("__class__")
-    if cls != "GCNConfig":
-        raise NotImplementedError(f"{cls} checkpoint: {_CNN_NOT_PORTED}")
-    for key in ("gc_dims", "fc_dims"):
-        cfg[key] = tuple(cfg[key])
-    return GCNConfig(**cfg), params
+    cls = {"GCNConfig": GCNConfig, "CNNConfig": CNNConfig}[
+        cfg.pop("__class__")]
+    for key in ("gc_dims", "fc_dims", "conv_kernels"):
+        if key in cfg:
+            cfg[key] = tuple(cfg[key])
+    return cls(**cfg), params

@@ -36,6 +36,14 @@ def seq2tokens(seq: str) -> np.ndarray:
     return tokens.astype(np.uint8)
 
 
+def seq2onehot(seq: str) -> np.ndarray:
+    """(L, 26) float32 one-hot of a sequence, on the host."""
+    tokens = seq2tokens(seq)
+    onehot = np.zeros((tokens.shape[0], VOCAB_SIZE), dtype=np.float32)
+    onehot[np.arange(tokens.shape[0]), tokens] = 1.0
+    return onehot
+
+
 def tokens2onehot(tokens: torch.Tensor,
                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """One-hot expansion of a (…, L) uint8/int token tensor → (…, L, 26)."""

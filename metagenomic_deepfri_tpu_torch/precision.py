@@ -10,6 +10,8 @@ states both settings instead of relying on them.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -28,3 +30,19 @@ def highest_f32_precision_active() -> bool:
     return (not torch.backends.cuda.matmul.allow_tf32
             and not torch.backends.cudnn.allow_tf32
             and torch.get_float32_matmul_precision() == "highest")
+
+
+@contextlib.contextmanager
+def highest_f32_precision():
+    """:func:`use_highest_f32_precision` inside the block; the previous
+    settings come back after it."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision())
+    use_highest_f32_precision()
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved[2])
+        torch.backends.cuda.matmul.allow_tf32 = saved[0]
+        torch.backends.cudnn.allow_tf32 = saved[1]

@@ -15,6 +15,8 @@ from metagenomic_deepfri_tpu_torch.data.structures import write_ca_pdb
 from metagenomic_deepfri_tpu_torch.models.convert import gcn_params_to_numpy
 from metagenomic_deepfri_tpu_torch.models.onnx_import import \
     export_gcn_to_onnx
+from metagenomic_deepfri_tpu_torch.models.tf2onnx_fixture import (
+    export_cnn_tf2onnx_style, export_gcn_tf2onnx_style)
 from metagenomic_deepfri_tpu_torch.ops.cmap_align import (
     _SENTINEL_BASE, _SENTINEL_SPACING, project_alignment_coords)
 
@@ -141,6 +143,31 @@ def aligned_items(n: int, seed: int, min_len: int = 40, max_len: int = 500):
     return items
 
 
+def threshold_head_bias(margins: np.ndarray, threshold: float, near: int,
+                        seed: int) -> np.ndarray:
+    """A head bias that makes scores sparse around ``threshold``.
+
+    ``margins`` (P, n_labels) are a head's class-0 minus class-1 logits over
+    a catalogue of P proteins with a zero head bias (the score is their
+    sigmoid). The returned (2·n_labels,) bias moves ``near`` randomly
+    chosen terms so that their median score over the catalogue sits on
+    ``threshold`` (about half the proteins clear it on each), and every
+    other term to 10 logits below its largest margin, so below
+    sigmoid(-10) ≈ 4.5e-5 on every protein of the catalogue. A top-k fetch
+    with K ≈ near / 2 then overflows on some proteins and is complete on
+    the rest.
+    """
+    margins = np.asarray(margins, np.float64)
+    picked = np.random.default_rng(seed).choice(
+        margins.shape[1], size=min(near, margins.shape[1]), replace=False)
+    bias = np.zeros(2 * margins.shape[1], np.float32)
+    # The class-1 bias shifts each term's margin down by its value.
+    bias[1::2] = margins.max(axis=0) + 10.0
+    bias[2 * picked + 1] = (np.median(margins[:, picked], axis=0)
+                            - np.log(threshold / (1.0 - threshold)))
+    return bias
+
+
 def goterms(n: int) -> list:
     """``n`` distinct GO-term ids, ``GO:0000000`` upwards."""
     return [f"GO:{i:07d}" for i in range(n)]
@@ -174,6 +201,20 @@ def write_training_corpus(directory, n: int, terms: list, seed: int,
     return structures, labels
 
 
+def _gcn_model_name(config, mode: str, contact_threshold: float) -> str:
+    return (f"DeepFRI-MERGED_GraphConv_"
+            f"gcd_{'-'.join(map(str, config.gc_dims))}_"
+            f"fcd_{'-'.join(map(str, config.fc_dims))}_ca_"
+            f"{contact_threshold}_{mode}.onnx")
+
+
+def _write_model_params(directory: Path, onnx_name: str, terms: list):
+    with open(directory / (onnx_name[:-5] + "_model_params.json"), "w",
+              encoding="utf-8") as f:
+        json.dump({"goterms": list(terms),
+                   "gonames": [f"term {t}" for t in terms]}, f)
+
+
 def write_gcn_weights(directory, config, params: dict, terms: list,
                       mode: str = "mf", contact_threshold: float = 10.0):
     """A weights folder holding one GCN, as the published folders do.
@@ -184,16 +225,41 @@ def write_gcn_weights(directory, config, params: dict, terms: list,
     """
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
-    name = (f"DeepFRI-MERGED_GraphConv_"
-            f"gcd_{'-'.join(map(str, config.gc_dims))}_"
-            f"fcd_{'-'.join(map(str, config.fc_dims))}_ca_"
-            f"{contact_threshold}_{mode}.onnx")
+    name = _gcn_model_name(config, mode, contact_threshold)
     export_gcn_to_onnx(gcn_params_to_numpy(params), config,
                        str(directory / name))
-    with open(directory / (name[:-5] + "_model_params.json"), "w",
-              encoding="utf-8") as f:
-        json.dump({"goterms": list(terms),
-                   "gonames": [f"term {t}" for t in terms]}, f)
+    _write_model_params(directory, name, terms)
     with open(directory / "model_config.json", "w", encoding="utf-8") as f:
         json.dump({"gcn": {mode: name}, "cnn": {}, "version": "1.1"}, f)
+    return directory
+
+
+def write_model_set(directory, gcn: dict, cnn: dict,
+                    contact_threshold: float = 10.0):
+    """A weights folder holding a GCN and a CNN per mode, in the published
+    weights' tf2onnx graph pattern (:mod:`.models.tf2onnx_fixture`).
+
+    ``gcn`` and ``cnn`` map ``mode → (config, params, terms)``; params may
+    be numpy or tensor trees. Writes each network's ONNX file, its
+    ``_model_params.json`` and one ``model_config.json`` naming them all.
+    The GCN graphs consume the adjacency as fed, so their configs should
+    say ``adj_norm="none"`` to import back equal. Returns the folder.
+    """
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    names = {"gcn": {}, "cnn": {}}
+    for mode, (config, params, terms) in gcn.items():
+        name = _gcn_model_name(config, mode, contact_threshold)
+        export_gcn_tf2onnx_style(gcn_params_to_numpy(params), config,
+                                 str(directory / name))
+        _write_model_params(directory, name, terms)
+        names["gcn"][mode] = name
+    for mode, (config, params, terms) in cnn.items():
+        name = f"DeepCNN-MERGED_{mode}.onnx"
+        export_cnn_tf2onnx_style(gcn_params_to_numpy(params), config,
+                                 str(directory / name))
+        _write_model_params(directory, name, terms)
+        names["cnn"][mode] = name
+    with open(directory / "model_config.json", "w", encoding="utf-8") as f:
+        json.dump({**names, "version": "1.1"}, f)
     return directory

@@ -2,7 +2,8 @@
 
 B1/B2 (``csrc/graphconv.cu``) and B3 (``csrc/contact.cu``), plus one
 full-width fine-tuning step whose float32 loss and gradients are held to
-float64 on the card.
+float64 on the card, and the CNN and the shared-trunk multi-mode step on
+the card against the same forwards on the CPU.
 
 Marked ``cuda``: they skip where no CUDA device is present. On a machine
 with one (and without JAX, which this file does not import), run them as
@@ -18,18 +19,23 @@ import numpy as np
 import pytest
 import torch
 
-from metagenomic_deepfri_tpu_torch.models.convert import gcn_params_from_numpy
-from metagenomic_deepfri_tpu_torch.models.deepfri import (GCNConfig,
-                                                          gcn_forward,
-                                                          gcn_forward_fused,
-                                                          init_gcn)
+from metagenomic_deepfri_tpu_torch.batching.engine import (BatchedPredictor,
+                                                           ModelHandle)
+from metagenomic_deepfri_tpu_torch.models.convert import (
+    gcn_params_from_numpy, gcn_params_to_numpy)
+from metagenomic_deepfri_tpu_torch.models.deepfri import (
+    CNNConfig, GCNConfig, cnn_forward, forward_pass_single, gcn_forward,
+    gcn_forward_fused, gcn_forward_multimode, init_cnn, init_gcn)
 from metagenomic_deepfri_tpu_torch.ops import contact
 from metagenomic_deepfri_tpu_torch.ops import graphconv as gc
+from metagenomic_deepfri_tpu_torch.ops.one_hot import seq2tokens
 from metagenomic_deepfri_tpu_torch.parallel import train
 from metagenomic_deepfri_tpu_torch.precision import use_highest_f32_precision
 from metagenomic_deepfri_tpu_torch.ops.cmap_align import \
     aligned_contacts_from_coords
-from metagenomic_deepfri_tpu_torch.synthetic import (contact_batch,
+from metagenomic_deepfri_tpu_torch.synthetic import (AMINO_ACIDS,
+                                                     aligned_items,
+                                                     contact_batch,
                                                      near_threshold_batch)
 
 pytestmark = pytest.mark.cuda
@@ -174,3 +180,78 @@ def test_full_width_step_matches_float64(cuda):
     for g, r in zip(out[torch.float32], out[torch.float64], strict=True):
         err = (g.double() - r).abs().max() / r.abs().max().clamp_min(1e-300)
         assert err.item() <= 1e-4
+
+
+def test_cnn_on_card_matches_cpu(cuda):
+    """The full-width CNN (512 filters of widths 8 and 16, FC 1024) on the
+    card against the CPU, float32 with TF32 off: atol 1e-5; and each row of
+    a padded engine batch against its unpadded single run on the card."""
+    use_highest_f32_precision()
+    cfg = CNNConfig(n_labels=489)
+    params = gcn_params_to_numpy(init_cnn(
+        cfg, torch.Generator().manual_seed(0), "cpu"))
+    rng = np.random.default_rng(3)
+    seqs = [(f"s{i}", "".join(rng.choice(list(AMINO_ACIDS), size=int(n))))
+            for i, n in enumerate((5, 40, 333, 1000))]
+    tokens = np.zeros((4, 1024), np.uint8)
+    lengths = np.array([len(s) for _, s in seqs], np.int32)
+    for i, (_, s) in enumerate(seqs):
+        tokens[i, :len(s)] = seq2tokens(s)
+    out = {}
+    for dev in ("cpu", cuda):
+        out[str(dev)] = cnn_forward(
+            gcn_params_from_numpy(params, dev), cfg,
+            torch.from_numpy(tokens).to(dev),
+            torch.from_numpy(lengths).to(dev)).cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=0, atol=1e-5)
+    engine = BatchedPredictor(cnn_models={"mf": ModelHandle(
+        "cnn", "mf", cfg, params)}, device=cuda)
+    rows = engine.predict_cnn(seqs)["mf"]
+    p = gcn_params_from_numpy(params, cuda)
+    for qid, seq in seqs:
+        np.testing.assert_allclose(
+            rows[qid], forward_pass_single(p, cfg, seq).cpu().numpy(),
+            rtol=0, atol=1e-5)
+
+
+def test_multimode_on_card_matches_per_mode(cuda):
+    """The shared-trunk step on the card against per-mode dense forwards
+    on the card (atol 1e-5), and the dense multi-mode engine against the
+    fused per-mode engine (B1/B2) on the card (atol 1e-4)."""
+    use_highest_f32_precision()
+    labels = {"bp": 64, "cc": 16, "mf": 32}
+    cfgs, trees = {}, {}
+    for i, (mode, n) in enumerate(labels.items()):
+        cfgs[mode] = GCNConfig(n_labels=n, lm_hidden=64, lm_layers=2,
+                               embed_dim=128, gc_dims=(64, 64), fc_dims=(64,))
+        trees[mode] = gcn_params_to_numpy(init_gcn(
+            cfgs[mode], torch.Generator().manual_seed(i), "cpu"))
+        for k in ("lm", "lm_embed", "aa_embed"):
+            trees[mode][k] = trees["bp"][k]
+    coords, ins, lengths = _on(cuda, *contact_batch(B=4, L=256, seed=9))
+    tokens = torch.from_numpy(np.random.default_rng(9).integers(
+        1, 25, (4, 256)).astype(np.uint8)).to(cuda)
+    adj = aligned_contacts_from_coords(coords, ins, lengths)
+    shared = {k: gcn_params_from_numpy(trees["bp"][k], cuda)
+              for k in ("lm", "lm_embed", "aa_embed")}
+    per_mode = {m: gcn_params_from_numpy(
+        {k: v for k, v in t.items() if k not in shared}, cuda)
+        for m, t in trees.items()}
+    out = gcn_forward_multimode(shared, per_mode, cfgs, tokens, adj, lengths)
+    for m in labels:
+        ref = gcn_forward(gcn_params_from_numpy(trees[m], cuda), cfgs[m],
+                          tokens, adj, lengths)
+        torch.testing.assert_close(out[m], ref, rtol=0, atol=1e-5)
+    handles = {m: ModelHandle("gcn", m, cfgs[m], trees[m]) for m in labels}
+    items = aligned_items(20, seed=4, min_len=40, max_len=300)
+    fused = BatchedPredictor(handles, device=cuda, batch_cap=8)
+    dense = BatchedPredictor(handles, device=cuda, batch_cap=8, spmm="dense")
+    assert dense._multi_key(list(labels))
+    before = gc.graphconv_aggregate.launches
+    got = fused.predict_gcn_from_coords(items)
+    assert gc.graphconv_aggregate.launches > before
+    want = dense.predict_gcn_from_coords(items)
+    for m in labels:
+        for q in want[m]:
+            np.testing.assert_allclose(got[m][q], want[m][q], rtol=0,
+                                       atol=1e-4)

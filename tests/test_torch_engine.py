@@ -137,9 +137,9 @@ def test_stream_batch_sizes(monkeypatch, n, cap, want):
     seen = []
     real = engine._run_batch
 
-    def spy(bucket, chunk, batch, modes):
+    def spy(bucket, chunk, batch, *args):
         seen.append(batch)
-        return real(bucket, chunk, batch, modes)
+        return real(bucket, chunk, batch, *args)
 
     monkeypatch.setattr(engine, "_run_batch", spy)
     items = aligned_items(n, seed=1, min_len=10, max_len=60)
@@ -155,9 +155,11 @@ def test_engine_rejects_bad_arguments():
         BatchedPredictor(torch_h, device="cpu", spmm="xla")
     engine = BatchedPredictor(torch_h, device="cpu")
     with pytest.raises(ValueError, match="gcn_coords"):
-        engine.predict_stream(iter([]), net="cnn")
+        engine.predict_stream(iter([]), net="gcn")  # the dense-cmap API
     with pytest.raises(KeyError):
         engine.predict_stream(iter([]), modes=["ec"])
+    with pytest.raises(KeyError, match="CNN"):
+        engine.predict_stream(iter([]), net="cnn", modes=["mf"])
     assert engine.predict_gcn_from_coords([]) == {m: {} for m in LABELS}
 
 
@@ -180,7 +182,8 @@ def test_port_imports_no_jax():
     assert {f"{PKG}.{m}" for m in (
         "batching.engine", "ops._build", "ops.contact", "data.structures",
         "models.onnx_reader", "models.onnx_import", "models.registry",
-        "parallel.train", "training", "utils")} <= set(mods)
+        "models.tf2onnx_fixture", "parallel.train", "parity", "cli",
+        "training", "utils")} <= set(mods)
     proc = _run_python(f"""
         import importlib, sys
         for name in {mods!r} + ["chip_smoke"]:

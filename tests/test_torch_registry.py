@@ -156,13 +156,15 @@ def test_npz_handle_and_cnn_refusal(tmp_path):
                                         pj)
     assert handle.config == cfg and handle.goterms == GOTERMS
     _assert_trees_equal(handle.params, params)
-    with pytest.raises(NotImplementedError, match="CNN"):
+    # a GCN checkpoint is refused as a CNN, and a CNN one loads as a CNN
+    with pytest.raises(ValueError, match="GCNConfig"):
         registry.load_model_handle("cnn", "mf", tmp_path / "gcn_mf.npz", pj)
     cnn_cfg = tmp_path / "cnn_config.json"
     cnn_cfg.write_text(json.dumps({"__class__": "CNNConfig", "n_labels": 3}))
     np.savez(tmp_path / "cnn.npz", x=np.zeros(1))
-    with pytest.raises(NotImplementedError, match="CNN"):
-        registry.load_checkpoint(tmp_path / "cnn.npz")
+    got_cfg, got = registry.load_checkpoint(tmp_path / "cnn.npz")
+    assert got_cfg == deepfri.CNNConfig(n_labels=3)
+    np.testing.assert_array_equal(got["x"], np.zeros(1))
 
 
 def test_utils_match_jax(tmp_path):
