@@ -47,7 +47,32 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    above-threshold values equal on complete rows). Times a warm pass of
    each route, the CNN, and the bp head's top-k fetch against its dense
    fetch (passes taken in turns, median of 3).
-7. Prints the kernel summary, the card's name and power limit, and last
+7. ``predict-function`` end to end through the port's command line on
+   phase 6's weights (bp, cc, mf): a directory of 384 CA-trace PDB files
+   (length 40–500) as the structure database; 256 queries copied from
+   distinct structures with about 5 % substitutions and one or two short
+   indels, 128 random queries (length 40–1000), two selenoproteins and two
+   of length 1200 (``--max-length 1000``); the built-in search, NW
+   re-alignment, coordinates, projections, the fused GCN (B1/B2), the CNN
+   fallback, saved contact maps, matrices, ``results.tsv`` and GO
+   propagation over a mini OBO. Run A is ``cli.main`` in this process (B1/B2
+   launches counted); run B is ``python -m metagenomic_deepfri_tpu_torch.cli``
+   in a subprocess with ``--skip-matrix`` (top-k fetch and the dense re-run
+   of overflows). Checks: both exit 0; every hit query aligned to its own
+   structure and no random one, the filtered queries absent; 3 B1 and 1 B2
+   launches per mode per GCN batch; 8 hit and 8 no-hit matrix rows within
+   1e-4 of the ONNX graphs run on the host by the port's numpy executor
+   (the GCN fed the saved aligned contact map); run B's ``results.tsv``
+   against run A's: byte-identical for every (protein, network, mode) block
+   that run B took from the top-k fetch, and for the blocks it re-ran in a
+   batch of another size the same rows with scores within one unit of the
+   4th decimal (cuBLAS results on the card depend on the padded batch size
+   in the last bits); rows for every mode, all ≥ 0.1, sorted; a larger
+   ``results_propagated.tsv``. Prints both runs' wall time and
+   queries/s, run A's stage profile, GCN batches and peak device memory,
+   the device's busy share of run A repeated under ``torch.profiler``
+   (run C), and the g++ version.
+8. Prints the kernel summary, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -55,6 +80,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
+import os
 import subprocess
 import sys
 import tempfile
@@ -124,6 +151,20 @@ TOPK = 256
 SCORE_THRESHOLD = 0.1
 ROUTE_ATOL = 1e-4
 CNN_ATOL = 1e-5
+# Phase 7: predict-function end to end on phase 6's weights.
+P7_STRUCTURES = 384
+P7_LENGTHS = (40, 500)
+P7_HITS = 256
+P7_NOHITS = 128
+P7_NOHIT_LENGTHS = (40, 1000)
+P7_LONG_LENGTH = 1200
+P7_MAX_LENGTH = 1000
+P7_OBO_TERMS = 255
+P7_ORACLE = 8
+P7_ORACLE_ATOL = 1e-4
+# One unit of results.tsv's 4th decimal (and the rounding of two values).
+P7_SCORE_ATOL = 1e-4 + 1e-9
+P7_RUN_B_TIMEOUT = 600
 SOURCES = {
     "graphconv_aggregate": "metagenomic_deepfri_tpu_torch/csrc/graphconv.cu",
     "contact_degrees": "metagenomic_deepfri_tpu_torch/csrc/graphconv.cu",
@@ -682,41 +723,39 @@ def fetch_times(dev, reps: int = 50) -> dict:
     return {name: float(np.median(v)) for name, v in samples.items()}
 
 
-def phase_models(dev, smi, items):
-    """Phase 6: the published model set through the whole engine; every
-    check raises on failure."""
+def phase_models(dev, smi, items, weights):
+    """Phase 6: the published model set, written to the folder ``weights``
+    (phase 7 reads it again), through the whole engine; every check raises
+    on failure."""
     seqs = no_hit_sequences(P6_SEQS, SEED)
     gcn_np, cnn_np = model_set_params(dev, items, seqs)
-    with tempfile.TemporaryDirectory() as tmp:
-        weights = synthetic.write_model_set(
-            Path(tmp) / "weights",
-            {m: (h.config, h.params, synthetic.goterms(h.config.n_labels))
-             for m, h in gcn_np.items()},
-            {m: (h.config, h.params, synthetic.goterms(h.config.n_labels))
-             for m, h in cnn_np.items()})
-        t0 = time.perf_counter()
-        gcn_h, cnn_h, _ = registry.load_models(weights, list(MODES))
-        log(f"phase 6: load_models {time.perf_counter() - t0:.2f} s: GCN "
-            f"{sorted(gcn_h)}, CNN {sorted(cnn_h)}")
-        for m in MODES:
-            if (gcn_h[m].config != gcn_np[m].config
-                    or cnn_h[m].config != cnn_np[m].config):
-                raise AssertionError(f"{m}: imported config differs")
-            assert_trees_equal(gcn_h[m].params, gcn_np[m].params,
-                               f"gcn/{m}")
-            assert_trees_equal(cnn_h[m].params, cnn_np[m].params,
-                               f"cnn/{m}")
-        t0 = time.perf_counter()
-        results = parity.verify_weights(weights, device=dev,
-                                        n_proteins=P6_VERIFY_PROTEINS)
-        log(f"  verify_weights ({time.perf_counter() - t0:.2f} s, "
-            f"{P6_VERIFY_PROTEINS} proteins a model):")
-        for r in results:
-            log(f"    {r.net}/{r.mode}: scores max|Δ|={r.max_abs_diff:.3g}, "
-                f"scaled logits max|Δ|={r.max_logit_diff:.3g} (tol "
-                f"{r.tolerance}) {'ok' if r.ok else 'FAIL'}")
-        if len(results) != 2 * len(MODES) or not all(r.ok for r in results):
-            raise AssertionError("verify_weights: a model exceeds tolerance")
+    synthetic.write_model_set(
+        weights,
+        {m: (h.config, h.params, synthetic.goterms(h.config.n_labels))
+         for m, h in gcn_np.items()},
+        {m: (h.config, h.params, synthetic.goterms(h.config.n_labels))
+         for m, h in cnn_np.items()})
+    t0 = time.perf_counter()
+    gcn_h, cnn_h, _ = registry.load_models(weights, list(MODES))
+    log(f"phase 6: load_models {time.perf_counter() - t0:.2f} s: GCN "
+        f"{sorted(gcn_h)}, CNN {sorted(cnn_h)}")
+    for m in MODES:
+        if (gcn_h[m].config != gcn_np[m].config
+                or cnn_h[m].config != cnn_np[m].config):
+            raise AssertionError(f"{m}: imported config differs")
+        assert_trees_equal(gcn_h[m].params, gcn_np[m].params, f"gcn/{m}")
+        assert_trees_equal(cnn_h[m].params, cnn_np[m].params, f"cnn/{m}")
+    t0 = time.perf_counter()
+    results = parity.verify_weights(weights, device=dev,
+                                    n_proteins=P6_VERIFY_PROTEINS)
+    log(f"  verify_weights ({time.perf_counter() - t0:.2f} s, "
+        f"{P6_VERIFY_PROTEINS} proteins a model):")
+    for r in results:
+        log(f"    {r.net}/{r.mode}: scores max|Δ|={r.max_abs_diff:.3g}, "
+            f"scaled logits max|Δ|={r.max_logit_diff:.3g} (tol "
+            f"{r.tolerance}) {'ok' if r.ok else 'FAIL'}")
+    if len(results) != 2 * len(MODES) or not all(r.ok for r in results):
+        raise AssertionError("verify_weights: a model exceeds tolerance")
 
     fused = BatchedPredictor(gcn_h, cnn_h, device=dev, batch_cap=BATCH_CAP)
     dense = BatchedPredictor(gcn_h, cnn_h, device=dev, batch_cap=BATCH_CAP,
@@ -810,6 +849,333 @@ def phase_models(dev, smi, items):
     log(f"  bp fetch of one batch ({BATCH_CAP} × {MODES['bp']}): "
         f"{json.dumps(fetch_times(dev))} on {smi}")
 
+def mini_obo(path: Path, n_terms: int) -> Path:
+    """A GO OBO over the synthetic terms: GO:i is_a GO:(i-1)//2 for the
+    first ``n_terms`` (a binary tree), so every predicted term among them
+    has ancestors to propagate to."""
+    lines = ["format-version: 1.2", ""]
+    for i, term in enumerate(synthetic.goterms(n_terms)):
+        lines += ["[Term]", f"id: {term}", f"name: term {term}"]
+        if i:
+            lines.append(f"is_a: GO:{(i - 1) // 2:07d} ! parent")
+        lines.append("")
+    path.write_text("\n".join(lines) + "\n", encoding="utf-8")
+    return path
+
+
+def predict_inputs(root: Path):
+    """Phase 7's structure directory, query FASTA and OBO under ``root``.
+    Returns ``(structures, queries_path, obo, hits {qid: source id},
+    no_hits [qid], dropped [qid])``."""
+    structures = root / "structures"
+    db = synthetic.write_structure_db(structures, P7_STRUCTURES, SEED + 70,
+                                      *P7_LENGTHS)
+    rng = np.random.default_rng(SEED + 71)
+    sources = rng.choice(sorted(db), size=P7_HITS, replace=False)
+    queries, hits = {}, {}
+    for i, sid in enumerate(sources):
+        hits[f"hit{i}"] = str(sid)
+        queries[f"hit{i}"] = synthetic.hit_query(rng, db[sid])
+    aas = list(synthetic.AMINO_ACIDS)
+    lo, hi = P7_NOHIT_LENGTHS
+    no_hits = [f"nohit{i}" for i in range(P7_NOHITS)]
+    for qid in no_hits:
+        queries[qid] = "".join(rng.choice(
+            aas, size=int(rng.integers(lo, hi + 1))))
+    dropped = []
+    for i in range(2):
+        seq = list(rng.choice(aas, size=200))
+        seq[int(rng.integers(20, 180))] = "U"
+        queries[f"seleno{i}"] = "".join(seq)
+        queries[f"long{i}"] = "".join(rng.choice(aas, size=P7_LONG_LENGTH))
+        dropped += [f"seleno{i}", f"long{i}"]
+    order = list(queries)
+    rng.shuffle(order)
+    queries_path = root / "queries.faa"
+    queries_path.write_text("".join(f">{q}\n{queries[q]}\n" for q in order),
+                            encoding="utf-8")
+    obo = mini_obo(root / "go-mini.obo", P7_OBO_TERMS)
+    return structures, queries_path, obo, hits, no_hits, dropped
+
+
+def read_tsv(path: Path):
+    lines = path.read_text(encoding="utf-8").splitlines()
+    return lines[0].split("\t"), [ln.split("\t") for ln in lines[1:]]
+
+
+def matrix_rows(path: Path, qids) -> dict:
+    """{qid: (network, float32 scores)} of a prediction matrix's rows."""
+    out = {}
+    with open(path, encoding="utf-8") as f:
+        next(f)
+        for line in f:
+            qid, net, rest = line.rstrip("\n").split("\t", 2)
+            if qid in qids:
+                out[qid] = (net, np.asarray(rest.split("\t"), np.float32))
+    return out
+
+
+def onnx_oracle(weights: Path, out: Path, hits, no_hits) -> float:
+    """Check 4: each prediction-matrix row of ``hits``/``no_hits`` against
+    the ONNX graph run on the host by the port's numpy executor (GCN fed
+    the saved aligned contact map, CNN the sequence alone); max |Δ|."""
+    from metagenomic_deepfri_tpu_torch.data.fasta import load_fasta_as_dict
+    from metagenomic_deepfri_tpu_torch.models.onnx_import import (
+        OnnxExecutor, graph_input_roles)
+    from metagenomic_deepfri_tpu_torch.models.onnx_reader import load_onnx
+    from metagenomic_deepfri_tpu_torch.ops.one_hot import seq2onehot
+    from metagenomic_deepfri_tpu_torch.utils import load_deepfri_config
+
+    config = load_deepfri_config(weights)
+    seqs = load_fasta_as_dict(out.parent / "queries.faa")
+    worst = 0.0
+    for mode in MODES:
+        rows = matrix_rows(out / f"prediction_matrix_{mode}.tsv",
+                           set(hits) | set(no_hits))
+        for net, qids in (("gcn", hits), ("cnn", no_hits)):
+            graph = load_onnx(config[net][mode])
+            executor, roles = OnnxExecutor(graph), graph_input_roles(graph)
+            for qid in qids:
+                feeds = {roles["S"]: seq2onehot(seqs[qid])[None]}
+                if net == "gcn":
+                    feeds[roles["A"]] = np.load(
+                        out / "contact_maps" / f"{qid}.npy").astype(
+                            np.float32)[None]
+                (onnx_out,) = executor.run(feeds)
+                got_net, row = rows[qid]
+                if got_net != net:
+                    raise AssertionError(f"{qid}: {got_net} row, want {net}")
+                worst = max(worst, float(np.abs(
+                    onnx_out[:, :, 0].reshape(-1) - row).max()))
+    return worst
+
+
+MODE_NAMES = {"bp": "GO Biological Process", "cc": "GO Cellular Component",
+              "mf": "GO Molecular Function"}
+
+
+def rerun_groups(out: Path) -> set:
+    """(protein, network, mode name) of the rows that run B's top-k fetch
+    overflows (``TOPK`` or more scores ≥ the threshold in run A's dense
+    matrix, for heads wider than 2·``TOPK``): the pipeline re-runs them in
+    a batch of another size."""
+    groups = set()
+    for mode, n_labels in MODES.items():
+        if n_labels <= 2 * TOPK:
+            continue
+        with open(out / f"prediction_matrix_{mode}.tsv",
+                  encoding="utf-8") as f:
+            next(f)
+            for line in f:
+                qid, net, rest = line.rstrip("\n").split("\t", 2)
+                scores = np.asarray(rest.split("\t"), np.float32)
+                if (scores >= SCORE_THRESHOLD).sum() >= TOPK:
+                    groups.add((qid, net, MODE_NAMES[mode]))
+    return groups
+
+
+def compare_runs(out_a: Path, out_b: Path, rerun: set) -> dict:
+    """Check 5: run B's ``results.tsv`` against run A's. The blocks of
+    (protein, network, mode) come in the same order; a block run B took
+    from the top-k fetch of the same batch is byte-identical; a block it
+    re-ran densely in a batch of another size (``rerun``) has the same
+    rows but for scores within one unit of the 4th decimal, terms within
+    that of the threshold, and the order of near-ties."""
+    def blocks(path):
+        header, rows = read_tsv(path)
+        out = {}
+        for r in rows:
+            out.setdefault(tuple(r[:3]), []).append(r)
+        return header, out
+
+    (ha, a), (hb, b) = blocks(out_a / "results.tsv"), blocks(
+        out_b / "results.tsv")
+    if ha != hb or list(a) != list(b):
+        raise AssertionError("results.tsv: header or blocks differ")
+    stats = {"blocks": len(a), "rerun_blocks": 0, "rerun_rows_differing": 0,
+             "rerun_max_score_delta": 0.0}
+    for key, rows_a in a.items():
+        rows_b = b[key]
+        if key not in rerun:
+            if rows_a != rows_b:
+                raise AssertionError(f"results.tsv differs at {key}, which "
+                                     "was not re-run")
+            continue
+        stats["rerun_blocks"] += 1
+        stats["rerun_rows_differing"] += sum(x != y for x, y in zip(
+            rows_a, rows_b)) + abs(len(rows_a) - len(rows_b))
+        by_a = {r[3]: r for r in rows_a}
+        by_b = {r[3]: r for r in rows_b}
+        for term in by_a.keys() | by_b.keys():
+            ra, rb = by_a.get(term), by_b.get(term)
+            if ra is None or rb is None:
+                if float((ra or rb)[4]) > SCORE_THRESHOLD + P7_SCORE_ATOL:
+                    raise AssertionError(f"{key} {term}: row on one side")
+                continue
+            delta = abs(float(ra[4]) - float(rb[4]))
+            stats["rerun_max_score_delta"] = max(
+                stats["rerun_max_score_delta"], delta)
+            if ra[:4] + ra[5:] != rb[:4] + rb[5:] or delta > P7_SCORE_ATOL:
+                raise AssertionError(f"{key} {term}: {ra} vs {rb}")
+    return stats
+
+
+def check_results(out: Path, n_modes: int) -> int:
+    """Check 6: rows for every mode, all ≥ the threshold, each (protein,
+    network, mode) block sorted by score; then check 7. Returns the rows."""
+    header, rows = read_tsv(out / "results.tsv")
+    if {r[2] for r in rows} != {MODE_NAMES[m] for m in MODES} or \
+            len(MODE_NAMES) != n_modes:
+        raise AssertionError("results.tsv lacks rows of a mode")
+    scores = [float(r[4]) for r in rows]
+    if min(scores) < SCORE_THRESHOLD:
+        raise AssertionError("results.tsv holds a score below the threshold")
+    for prev, cur, ps, cs in zip(rows, rows[1:], scores, scores[1:]):
+        if prev[:3] == cur[:3] and cs > ps:
+            raise AssertionError(f"results.tsv unsorted at {cur[:4]}")
+    p_header, p_rows = read_tsv(out / "results_propagated.tsv")
+    if p_header != header + ["propagated"] or len(p_rows) < len(rows) or \
+            not any(r[-1] == "True" for r in p_rows):
+        raise AssertionError("results_propagated.tsv is incomplete")
+    return len(rows)
+
+
+def phase_predict(dev, smi, weights: Path, root: Path, device_arg: str):
+    """Phase 7: ``predict-function`` end to end through the port's command
+    line, in this process (run A) and in a subprocess (run B,
+    ``--skip-matrix``). Returns run A's kernel launches."""
+    from metagenomic_deepfri_tpu_torch import cli, profiling
+    from metagenomic_deepfri_tpu_torch.native import build as native
+
+    log(f"phase 7: g++ {native.compiler_version()}")
+    t0 = time.perf_counter()
+    structures, queries, obo, hits, no_hits, dropped = predict_inputs(root)
+    n_queries = len(hits) + len(no_hits) + len(dropped)
+    log(f"  inputs {time.perf_counter() - t0:.2f} s: {P7_STRUCTURES} "
+        f"structures, {len(hits)} hit + {len(no_hits)} no-hit queries, "
+        f"{len(dropped)} filtered (selenoprotein, > {P7_MAX_LENGTH} aa)")
+    threads = min(16, os.cpu_count() or 1)
+    argv = ["predict-function", "-i", str(queries), "-d", str(structures),
+            "-w", str(weights), "--skip-pdb", "--device", device_arg,
+            "-p", "bp", "-p", "cc", "-p", "mf", "--propagate-go-terms",
+            "--obo-path", str(obo), "--max-length", str(P7_MAX_LENGTH),
+            "-t", str(threads)]
+
+    batches = []
+    real_run_batch = BatchedPredictor._run_batch
+
+    def spy(self, bucket, chunk, batch, modes, net="gcn_coords",
+            overflow_cb=None):
+        batches.append((net, bucket, batch, len(chunk)))
+        return real_run_batch(self, bucket, chunk, batch, modes, net,
+                              overflow_cb)
+
+    out_a, out_b = root / "run_a", root / "run_b"
+    profiling.reset()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    BatchedPredictor._run_batch = spy
+    reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(argv + ["-o", str(out_a), "--save-cmaps"])
+        secs_a = time.perf_counter() - t0
+    finally:
+        BatchedPredictor._run_batch = real_run_batch
+        logging.getLogger().handlers.clear()
+    launches = launch_counts()
+    if rc != 0:
+        raise AssertionError(f"run A exited {rc}")
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if dev.type == "cuda" else float("nan"))
+    gcn_batches = [b for b in batches if b[0] == "gcn_coords"]
+    log(f"  run A (in process): {secs_a:.2f} s, "
+        f"{n_queries / secs_a:.2f} queries/s end to end on {smi}")
+    log(f"  run A profile: {json.dumps(profiling.report())}")
+    log(f"  run A batches (net, bucket, batch, proteins): {batches}")
+    log(f"  run A peak device memory: {peak:.2f} GiB on {smi}")
+
+    # Run C: run A again under torch.profiler (CUDA activity only) for the
+    # device's busy share of an end-to-end run; its wall time is not used.
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rc = cli.main(argv + ["-o", str(root / "run_c"), "--save-cmaps"])
+            torch.cuda.synchronize()
+    finally:
+        logging.getLogger().handlers.clear()
+    secs_c = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e6
+    if rc != 0:
+        raise AssertionError(f"run C exited {rc}")
+    log(f"  run C (run A under torch.profiler): {secs_c:.2f} s wall, "
+        f"{busy:.3f} s of device time, busy share {busy / secs_c:.3f}, "
+        f"idle share {1 - busy / secs_c:.3f} on {smi}")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "metagenomic_deepfri_tpu_torch.cli", *argv,
+         "-o", str(out_b), "--skip-matrix"],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=P7_RUN_B_TIMEOUT)
+    secs_b = time.perf_counter() - t0
+    (root / "run_b.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:] + proc.stderr[-4000:])
+        raise AssertionError(f"run B exited {proc.returncode}")
+    reruns = [ln for ln in proc.stdout.splitlines() if "Re-running" in ln]
+    log(f"  run B (subprocess, --skip-matrix): {secs_b:.2f} s, "
+        f"{n_queries / secs_b:.2f} queries/s end to end on {smi}; "
+        f"{reruns[0].split(':: ')[-1] if reruns else 'no dense re-run'}")
+
+    # Check 2: every hit aligned to its own source, no no-hit, none dropped.
+    _, summary = read_tsv(out_a / "alignment_summary.tsv")
+    rows = {r[0]: r for r in summary}
+    wrong = [q for q, sid in hits.items()
+             if rows.get(q, [None, None, None])[1:3] != ["True", sid]]
+    aligned_no_hits = [q for q in no_hits if rows[q][1] != "False"]
+    if wrong or aligned_no_hits or any(q in rows for q in dropped) or \
+            len(rows) != len(hits) + len(no_hits):
+        raise AssertionError(f"alignment summary: hits misaligned {wrong[:5]}"
+                             f", no-hits aligned {aligned_no_hits[:5]}")
+    log(f"  alignment summary: {len(hits)}/{len(hits)} hits on their source "
+        f"structure, 0/{len(no_hits)} no-hits aligned")
+
+    # Check 3: 3 B1 and 1 B2 launches per mode per GCN batch.
+    expect_launches(launches, {
+        "graphconv_aggregate": 3 * len(MODES) * len(gcn_batches),
+        "contact_degrees": len(MODES) * len(gcn_batches),
+        "contact_map": 0}, f"run A, {len(gcn_batches)} GCN batches")
+
+    # Check 4: matrix rows against the ONNX graphs on the host.
+    t0 = time.perf_counter()
+    oracle = onnx_oracle(weights, out_a, list(hits)[:P7_ORACLE], no_hits[
+        :P7_ORACLE])
+    log(f"  prediction matrices vs ONNX on the host ({P7_ORACLE} hit + "
+        f"{P7_ORACLE} no-hit queries, {len(MODES)} modes, "
+        f"{time.perf_counter() - t0:.2f} s): max|Δ|={oracle:.3g} "
+        f"(atol {P7_ORACLE_ATOL})")
+    if not oracle <= P7_ORACLE_ATOL:
+        raise AssertionError("prediction matrix differs from the ONNX graph")
+
+    # Check 5: run B (top-k fetch, dense re-run of overflows) against run A.
+    if (out_a / "alignment_summary.tsv").read_bytes() != \
+            (out_b / "alignment_summary.tsv").read_bytes():
+        raise AssertionError("run B's alignment summary differs from A's")
+    same = (out_a / "results.tsv").read_bytes() == \
+        (out_b / "results.tsv").read_bytes()
+    stats = compare_runs(out_a, out_b, rerun_groups(out_a))
+    log(f"  run B's results.tsv vs run A's: byte-identical {same}; "
+        f"{json.dumps(stats)} (re-run blocks held to {P7_SCORE_ATOL:.4g})")
+    # Checks 6 and 7.
+    n_rows = check_results(out_a, len(MODES))
+    log(f"  results.tsv: {n_rows} rows, every mode, all ≥ "
+        f"{SCORE_THRESHOLD}, sorted; results_propagated.tsv "
+        f"{len(read_tsv(out_a / 'results_propagated.tsv')[1])} rows")
+    return launches
+
 
 def main() -> int:
     # Phase 1: device.
@@ -894,8 +1260,14 @@ def main() -> int:
     for r in cmap_times:
         log(f"  {json.dumps(r)}")
 
-    # Phase 6: the published model set, both networks, both GCN routes.
-    phase_models(dev, smi, items)
+    with tempfile.TemporaryDirectory() as tmp:
+        # Phase 6: the published model set, both networks, both GCN routes.
+        weights = Path(tmp) / "weights"
+        phase_models(dev, smi, items, weights)
+        # Phase 7: predict-function end to end (B1/B2 in every GCN batch).
+        for name, n in phase_predict(dev, smi, weights, Path(tmp),
+                                     "cuda").items():
+            launches[name] += n
 
     def headline(name):
         if name == "contact_map":  # the fine-tuning batch: B=8, bucket 512

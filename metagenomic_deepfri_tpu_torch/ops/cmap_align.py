@@ -55,6 +55,44 @@ def alignment_index_map(query_alignment: str, target_alignment: str,
             np.asarray(insertions, dtype=np.int32), q)
 
 
+def align_contact_map(query_alignment: str,
+                      target_alignment: str,
+                      sparse_target_contact_map: np.ndarray,
+                      generated_contacts: int = 2,
+                      threads: int = 1) -> np.ndarray:
+    """Dense (Q, Q) int32 aligned contact map on the host (numpy).
+
+    A copy of the JAX package's host path (``cmap_align.py:64-102``,
+    reference ``contact_map_utils.pyx:44-117``; ``threads`` is accepted for
+    API parity): identity diagonal, ``generated_contacts`` neighbour
+    contacts around each insertion, and the target's contacts mapped
+    through the alignment, symmetrised.
+    """
+    del threads
+    t2q, insertions, qlen = alignment_index_map(query_alignment,
+                                                target_alignment)
+    out = np.zeros((qlen, qlen), dtype=np.int32)
+    np.fill_diagonal(out, 1)
+
+    for q in insertions:
+        for j in range(1, generated_contacts + 1):
+            for p1, p2 in ((q + j, q), (q - j, q)):
+                if 0 <= p1 < qlen and 0 <= p2 < qlen:
+                    out[p1, p2] = 1
+                    out[p2, p1] = 1
+
+    contacts = np.asarray(sparse_target_contact_map, dtype=np.int64)
+    if contacts.size:
+        ti, tj = contacts[:, 0], contacts[:, 1]
+        in_range = (ti < t2q.shape[0]) & (tj < t2q.shape[0])
+        ti, tj = ti[in_range], tj[in_range]
+        qi, qj = t2q[ti], t2q[tj]
+        mapped = (qi >= 0) & (qj >= 0)
+        out[qi[mapped], qj[mapped]] = 1
+        out[qj[mapped], qi[mapped]] = 1
+    return out
+
+
 def project_alignment_coords(query_alignment: str, target_alignment: str,
                              target_coords: np.ndarray):
     """Gather target CA coords into query indexing (host, numpy).

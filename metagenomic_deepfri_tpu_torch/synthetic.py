@@ -201,6 +201,44 @@ def write_training_corpus(directory, n: int, terms: list, seed: int,
     return structures, labels
 
 
+def write_structure_db(directory, n: int, seed: int, min_len: int = 40,
+                       max_len: int = 500) -> dict:
+    """A structure-directory database: ``n`` CA-trace PDB files
+    ``s{i}.pdb`` (3.8 Å random-walk chains, random sequences, lengths
+    uniform in [min_len, max_len]) in ``directory``. Returns
+    ``{id: sequence}``."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    seqs = {}
+    for i in range(n):
+        length = int(rng.integers(min_len, max_len + 1))
+        seqs[f"s{i}"] = "".join(rng.choice(list(AMINO_ACIDS), size=length))
+        write_ca_pdb(directory / f"s{i}.pdb", seqs[f"s{i}"],
+                     _target_chain(rng, length))
+    return seqs
+
+
+def hit_query(rng, seq: str, substitution_rate: float = 0.05,
+              indels=(1, 2), indel_len=(1, 3)) -> str:
+    """A near-copy of ``seq``: about ``substitution_rate`` of its positions
+    substituted by another residue, then one or two (``indels``) short
+    insertions or deletions of 1–3 residues (``indel_len``), away from the
+    ends, so that the re-alignment carries insertions into the projection."""
+    out = list(seq)
+    n_sub = max(1, int(round(substitution_rate * len(out))))
+    for pos in rng.choice(len(out), size=n_sub, replace=False):
+        out[pos] = rng.choice([a for a in AMINO_ACIDS if a != out[pos]])
+    for _ in range(int(rng.integers(indels[0], indels[1] + 1))):
+        k = int(rng.integers(indel_len[0], indel_len[1] + 1))
+        pos = int(rng.integers(5, len(out) - 5 - k))
+        if rng.random() < 0.5:
+            del out[pos:pos + k]
+        else:
+            out[pos:pos] = list(rng.choice(list(AMINO_ACIDS), size=k))
+    return "".join(out)
+
+
 def _gcn_model_name(config, mode: str, contact_threshold: float) -> str:
     return (f"DeepFRI-MERGED_GraphConv_"
             f"gcd_{'-'.join(map(str, config.gc_dims))}_"

@@ -255,3 +255,95 @@ def test_multimode_on_card_matches_per_mode(cuda):
         for q in want[m]:
             np.testing.assert_allclose(got[m][q], want[m][q], rtol=0,
                                        atol=1e-4)
+
+
+def test_native_search_with_cuda_initialised(cuda):
+    """The native NW and k-mer libraries (system OpenMP) run with 4 threads
+    in a process where torch has initialised CUDA (and loaded its own
+    OpenMP runtime): equal to their single-threaded and numpy results."""
+    from metagenomic_deepfri_tpu_torch.align.matrices import ScoringMatrix
+    from metagenomic_deepfri_tpu_torch.ops.nw import nw_align, nw_score_many
+    from metagenomic_deepfri_tpu_torch.search.engine import builtin_search
+
+    torch.ones(8, device=cuda).sum().item()
+    rng = np.random.default_rng(12)
+    aas = list(AMINO_ACIDS)
+    targets = {f"t{i}": "".join(rng.choice(aas, size=int(
+        rng.integers(60, 300)))) for i in range(120)}
+    queries = {}
+    for i, (tid, seq) in enumerate(list(targets.items())[:40]):
+        q = list(seq)
+        for pos in rng.choice(len(q), size=len(q) // 10, replace=False):
+            q[pos] = rng.choice(aas)
+        queries[f"q{i}"] = "".join(q)
+    sm = ScoringMatrix.from_name("BLOSUM62")
+    seqs = list(targets.values())
+    many = nw_score_many(queries["q0"], seqs, sm, threads=4)
+    assert np.array_equal(many, nw_score_many(queries["q0"], seqs, sm,
+                                              threads=1))
+    assert np.array_equal(many[:6], [nw_align(queries["q0"], t, sm,
+                                              force_python=True)[0]
+                                     for t in seqs[:6]])
+    four = builtin_search(queries, targets, max_eval=1e-3, threads=4)
+    one = builtin_search(queries, targets, max_eval=1e-3, threads=1)
+    assert len(four) >= 40
+    for col in four.table.dtype.names:
+        assert np.array_equal(four.table[col], one.table[col])
+    assert torch.cuda.is_initialized()
+
+
+def test_pipeline_on_card_matches_cpu(cuda, tmp_path):
+    """``predict_protein_function(device="cuda")`` on a small structure
+    directory: the same alignment summary and results.tsv rows as the same
+    pipeline on the CPU (scores within one unit of the 4th decimal), with
+    B1/B2 launched for every GCN batch."""
+    from metagenomic_deepfri_tpu_torch import pipeline, synthetic
+
+    db = synthetic.write_structure_db(tmp_path / "structures", 24, seed=3,
+                                      min_len=40, max_len=300)
+    rng = np.random.default_rng(4)
+    queries = {f"h{i}": synthetic.hit_query(rng, db[f"s{i}"])
+               for i in range(12)}
+    queries.update({f"n{i}": "".join(rng.choice(list(AMINO_ACIDS), 90))
+                    for i in range(6)})
+    (tmp_path / "q.faa").write_text(
+        "".join(f">{k}\n{v}\n" for k, v in queries.items()))
+    gcn, cnn = {}, {}
+    for i, mode in enumerate(("mf", "cc")):
+        gcfg = GCNConfig(n_labels=24, lm_hidden=32, lm_layers=1,
+                         embed_dim=32, gc_dims=(32, 32, 32), fc_dims=(32,),
+                         adj_norm="none")
+        ccfg = CNNConfig(n_labels=24, conv_filters=16, conv_kernels=(8, 16),
+                         fc_dims=(32,))
+        terms = synthetic.goterms(24)
+        gcn[mode] = (gcfg, gcn_params_to_numpy(init_gcn(
+            gcfg, torch.Generator().manual_seed(i), "cpu")), terms)
+        cnn[mode] = (ccfg, gcn_params_to_numpy(init_cnn(
+            ccfg, torch.Generator().manual_seed(10 + i), "cpu")), terms)
+    weights = synthetic.write_model_set(tmp_path / "weights", gcn, cnn)
+
+    outs = {}
+    for dev in ("cpu", str(cuda)):
+        out = tmp_path / f"on_{dev}"
+        qf = pipeline.load_query_file(tmp_path / "q.faa")
+        dbs = pipeline.hierarchical_database_search(
+            qf, out / "database_search", [tmp_path / "structures"],
+            skip_pdb=True, max_eval=1e-3, threads=4)
+        before = gc.contact_degrees.launches
+        pipeline.predict_protein_function(
+            pipeline.load_query_file(tmp_path / "q.faa"), tuple(dbs),
+            weights, out, deepfri_processing_modes=["mf", "cc"], threads=4,
+            device=dev)
+        if torch.device(dev).type == "cuda":
+            assert gc.contact_degrees.launches > before
+        outs["card" if dev != "cpu" else "cpu"] = out
+    assert (outs["card"] / "alignment_summary.tsv").read_bytes() == \
+        (outs["cpu"] / "alignment_summary.tsv").read_bytes()
+    rows = {d: [ln.split("\t") for ln in
+                (o / "results.tsv").read_text().splitlines()]
+            for d, o in outs.items()}
+    assert len(rows["card"]) == len(rows["cpu"]) > 10
+    for a, b in zip(rows["card"], rows["cpu"]):
+        assert a[:4] + a[5:] == b[:4] + b[5:]
+        if a[4] != "score":
+            assert abs(float(a[4]) - float(b[4])) <= 1e-4 + 1e-9

@@ -183,7 +183,12 @@ def test_port_imports_no_jax():
         "batching.engine", "ops._build", "ops.contact", "data.structures",
         "models.onnx_reader", "models.onnx_import", "models.registry",
         "models.tf2onnx_fixture", "parallel.train", "parity", "cli",
-        "training", "utils")} <= set(mods)
+        "training", "utils", "pipeline", "checkpoint", "profiling",
+        "bio_utils", "ops.nw", "ops.cmap_align", "native.build",
+        "align.matrices", "align.pairwise", "data.fasta", "ontology.go",
+        "parallel.multihost", "search.binaries", "search.database",
+        "search.engine", "search.mmseqs", "search.pdb", "search.query",
+        "search.results")} <= set(mods)
     proc = _run_python(f"""
         import importlib, sys
         for name in {mods!r} + ["chip_smoke"]:
@@ -198,12 +203,17 @@ def test_port_imports_no_jax():
 
 
 def test_import_builds_nothing(tmp_path):
-    marker = tmp_path / "nvcc_called"
+    """Importing every module of the port runs no compiler: neither nvcc
+    (the kernels) nor the C++ compiler (the native NW and k-mer libraries),
+    both replaced by scripts that leave a marker."""
     fake_bin = tmp_path / "bin"
     fake_bin.mkdir()
-    nvcc = fake_bin / "nvcc"
-    nvcc.write_text(f"#!/bin/sh\ntouch {marker}\nexit 1\n")
-    nvcc.chmod(0o755)
+    markers = []
+    for tool in ("nvcc", "g++"):
+        markers.append(tmp_path / f"{tool}_called")
+        (fake_bin / tool).write_text(
+            f"#!/bin/sh\ntouch {markers[-1]}\nexit 1\n")
+        (fake_bin / tool).chmod(0o755)
     env = dict(os.environ, PATH=f"{fake_bin}{os.pathsep}{os.environ['PATH']}",
                CUDA_HOME=str(tmp_path))
     proc = _run_python(f"""
@@ -211,11 +221,17 @@ def test_import_builds_nothing(tmp_path):
         for name in {_port_modules()!r}:
             importlib.import_module(name)
         from {PKG}.ops import _build
+        from {PKG}.native import build
         print("LIB", _build.library_path().exists())
+        print("NATIVE", [build.library_path(n).exists() for n in build.NAMES])
+        print("LOADED", build._LOADED)
     """, env=env)
     assert proc.returncode == 0, proc.stderr
-    assert not marker.exists()
+    assert not any(m.exists() for m in markers)
     assert "LIB False" in proc.stdout
+    # the libraries are keyed on the compiler's path: none for the fake
+    assert "NATIVE [False, False]" in proc.stdout
+    assert "LOADED {}" in proc.stdout
 
 
 def test_build_failure_raises_with_nvcc_output(tmp_path, monkeypatch):
