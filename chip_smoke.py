@@ -8,12 +8,15 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
 1. Device: a CUDA device is required (no CPU fallback); prints its name,
    the device count and ``nvidia-smi``'s name and power limit.
 2. Build: compiles ``metagenomic_deepfri_tpu_torch/csrc/*.cu`` with nvcc
-   (``graphconv.cu``: B1, B2; ``contact.cu``: B3).
+   (``graphconv.cu``: B1, B2; ``contact.cu``: B3), prints ptxas's
+   register and spill counts, and fails unless every instance of B1 issues
+   ``HGMMA`` (wgmma) in the SASS that ``cuobjdump`` shows.
 3. Kernels against their plain PyTorch twins on the card, at B=4,
    L ∈ {130, 512} (sentinels and insertions) plus a near-threshold batch
    (pairs at 6 Å ± 1 ulp): degrees and contact maps exact, aggregation
-   rtol 1e-5 / atol 1e-4 for D ∈ {48, 512, 1024} in float32 and bfloat16
-   compute.
+   rtol 1e-5 / atol 1e-4 for D ∈ {37, 48, 200, 512, 1024} in float32 and
+   bfloat16 compute (D = 37 takes 4-byte copies; D = 200 mixes features
+   of magnitude 1e30, 1 and 1e-30).
 4. The inference slice at full published width: three GCN modes (bp 3992,
    cc 320, mf 489 terms; LSTM-LM 512×2, embed 1024, GraphConv 512×3,
    FC 1024) with seeded random weights, 96 alignment-projected proteins of
@@ -21,7 +24,11 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    in bfloat16 and float32. Checks ids, finiteness, range, kernel launch
    counts, and the float32 scores against the dense plain route on the card
    (atol 1e-4). Times a warm pass (proteins/s), the forward's stage shares,
-   and each kernel against its twin at the main path's shapes.
+   and each kernel at the main path's shapes: CUDA-event time (launch
+   included), device time from ``torch.profiler``, host time (their
+   difference), the twin's time, the bound of the launch (bytes or
+   operations, from the real lengths) and, for B1, ``torch.bmm`` on the
+   dense adjacency (float32 with TF32 off, and bf16 operands).
 5. The fine-tuning path at full published width: 48 synthetic CA-trace
    structures of length 40–500 (buckets 128/256/512), labels over the mf
    head's 489 terms, base weights exported to ONNX, then
@@ -72,8 +79,9 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    queries/s, run A's stage profile, GCN batches and peak device memory,
    the device's busy share of run A repeated under ``torch.profiler``
    (run C), and the g++ version.
-8. Prints the kernel summary, the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+8. Prints the kernel summary (launches on the main path, max |Δ|, ms,
+   plain, device, bound and library ms), the card's name and power limit,
+   and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -112,8 +120,8 @@ try:
         aligned_contacts_from_coords
     from metagenomic_deepfri_tpu_torch.ops.one_hot import tokens2onehot
     from metagenomic_deepfri_tpu_torch.parallel import train
-    from metagenomic_deepfri_tpu_torch.precision import \
-        use_highest_f32_precision
+    from metagenomic_deepfri_tpu_torch.precision import (
+        highest_f32_precision, use_highest_f32_precision)
 except ModuleNotFoundError as err:
     raise SystemExit("chip_smoke.py runs from the root of a checkout of the "
                      f"repo: {err}") from None
@@ -176,6 +184,18 @@ REPLACES = {
         "metagenomic_deepfri_tpu/ops/graphconv_pallas.py:275",
     "contact_map": "metagenomic_deepfri_tpu/ops/contact.py:193",
 }
+SYMBOLS = {
+    "contact_degrees": "contact_degrees_kernel",
+    "graphconv_aggregate": "graphconv_aggregate_kernel",
+    "contact_map": "contact_map_kernel",
+}
+# A kernel's bound is the larger of its bytes (each input read once, each
+# output written once) over HBM3's rate and its operations over the peak of
+# their type: one H100 SXM, NVIDIA's data sheet, dense.
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12
+PAIR_OPS = 9  # one pair's distance test: 3 sub, 3 mul, 2 add, 1 compare
 
 
 def log(*args):
@@ -216,6 +236,31 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def mixed_magnitudes(xs: torch.Tensor) -> torch.Tensor:
+    """Features scaled by 1e30 (one sign a column, so sums do not cancel),
+    1e-30 and 1 in turn along the last axis: every exponent band of the
+    three-plane split."""
+    out = xs.clone()
+    big = out[..., 0::3]
+    out[..., 0::3] = big.abs() * 1e30 * torch.where(
+        torch.arange(big.shape[-1]) % 2 == 0, 1.0, -1.0)
+    out[..., 1::3] *= 1e-30
+    return out
+
+
+def check_hgmma(lib_path: Path) -> None:
+    """Phase 2: every instance of B1 must issue HGMMA (wgmma) in SASS."""
+    sass = _build.kernel_sass(lib_path)
+    b1 = [code for name, code in sass.items()
+          if SYMBOLS["graphconv_aggregate"] in name]
+    with_hgmma = sum("HGMMA" in code for code in b1)
+    log(f"  SASS: {with_hgmma} of {len(b1)} graphconv_aggregate_kernel "
+        "instances issue HGMMA")
+    if not b1 or with_hgmma != len(b1):
+        raise AssertionError("graphconv_aggregate_kernel does not use the "
+                             "tensor cores (no HGMMA in its SASS)")
+
+
 def phase_kernels(dev):
     """Phase 3: each kernel against its plain twin; returns max |Δ| each."""
     def on_dev(batch):
@@ -247,9 +292,12 @@ def phase_kernels(dev):
         if d != 0.0:
             raise AssertionError(f"contact_degrees differs at {name}")
         g = torch.Generator().manual_seed(SEED)
-        for D in (48, 512, 1024):
+        for D in (37, 48, 200, 512, 1024):
             xs = torch.randn((coords.shape[0], coords.shape[1], D),
-                             generator=g).to(dev)
+                             generator=g)
+            if D == 200:
+                xs = mixed_magnitudes(xs)
+            xs = xs.to(dev)
             for cdt in ("float32", "bfloat16"):
                 out = gc.graphconv_aggregate(coords, ins, lengths, xs,
                                              compute_dtype=cdt)
@@ -257,10 +305,17 @@ def phase_kernels(dev):
                                                  compute_dtype=cdt)
                 torch.cuda.synchronize()
                 d = (out - ref).abs().max().item()
-                err["graphconv_aggregate"] = max(err["graphconv_aggregate"],
-                                                 d)
-                log(f"  graphconv_aggregate {name} D={D} {cdt}: "
-                    f"max|Δ|={d:.3g}")
+                if D == 200:  # values up to ~1e31: report the share of
+                    # the tolerance used, max |Δ| / (atol + rtol·|ref|)
+                    used = ((out - ref).abs() / (AGG_TOL["atol"] + AGG_TOL[
+                        "rtol"] * ref.abs())).max().item()
+                    log(f"  graphconv_aggregate {name} D={D} {cdt} (features "
+                        f"1e30/1/1e-30): tolerance used {used:.3g}")
+                else:
+                    err["graphconv_aggregate"] = max(
+                        err["graphconv_aggregate"], d)
+                    log(f"  graphconv_aggregate {name} D={D} {cdt}: "
+                        f"max|Δ|={d:.3g}")
                 torch.testing.assert_close(out, ref, **AGG_TOL)
     return err
 
@@ -358,71 +413,124 @@ def stage_shares(handle, items, dev):
             "rest_share": 1.0 - (lm + kern) / whole}
 
 
+def kernel_bound(name, coords, lengths, D=None, planes=1):
+    """(bound_ms, "bytes" | "operations") of one launch on these inputs,
+    work counted from the real lengths. B1's products are counted at the
+    bf16 tensor-core rate, ``planes`` of them a product (3 for exact
+    float32); the distance tests of B2/B3 at the float32 rate."""
+    B, L, _ = coords.shape
+    n = lengths.clamp(0, L).to(torch.int64)
+    sum_n, sum_n2 = int(n.sum()), int((n * n).sum())
+    if name == "graphconv_aggregate":
+        nbytes = B * L * 13 + B * 4 + 4 * sum_n * D + 4 * B * L * D
+        ops, peak = 2 * sum_n2 * D * planes, BF16_TENSOR_FLOP_PER_S
+    elif name == "contact_degrees":
+        nbytes = B * L * 13 + B * 4 + 4 * B * L
+        ops, peak = PAIR_OPS * sum_n2, F32_FLOP_PER_S
+    else:  # contact_map: coordinates and lengths in, B·L² floats out
+        nbytes = B * L * 12 + B * 4 + 4 * B * L * L
+        ops, peak = PAIR_OPS * sum_n2, F32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def bmm_library_ms(coords, ins, lengths, xs, cdt):
+    """B1's library yardstick: one ``torch.bmm`` on the dense adjacency,
+    built outside the timed call. float32 with TF32 off; for bfloat16, bf16
+    operands with a float32 output where ``bmm`` takes ``out_dtype``, else
+    a bf16 output. Returns (ms, output dtype). The port never calls it."""
+    adj = aligned_contacts_from_coords(coords, ins, lengths)
+    if cdt == "float32":
+        with highest_f32_precision():
+            return cuda_ms(lambda: torch.bmm(adj, xs)), "float32"
+    a, x = adj.to(torch.bfloat16), xs.to(torch.bfloat16)
+    try:
+        torch.bmm(a, x, out_dtype=torch.float32)
+    except (TypeError, RuntimeError, NotImplementedError):
+        return cuda_ms(lambda: torch.bmm(a, x)), "bfloat16"
+    return (cuda_ms(lambda: torch.bmm(a, x, out_dtype=torch.float32)),
+            "float32")
+
+
+def timed_row(name, fn, plain, bound, **fields):
+    """CUDA-event ms of ``fn`` (host launch included), the kernel's own
+    device ms, host ms (the difference), and the plain twin's ms."""
+    ms = cuda_ms(fn)
+    device = kernel_device_ms(fn, SYMBOLS[name])
+    return {"kernel": name, **fields, "ms": ms, "device_ms": device,
+            "host_ms": None if device is None else ms - device,
+            "plain_ms": cuda_ms(plain), "bound_ms": bound[0],
+            "bound_by": bound[1]}
+
+
 def kernel_times(dev):
-    """Each kernel and its twin at the main path's shapes (B=TIMED_BATCH)."""
+    """B1/B2 and their twins at the main path's shapes (B=TIMED_BATCH), with
+    each launch's bound and B1's library yardstick."""
     rows = []
     for L in BUCKETS:
         coords, ins, lengths = (
             torch.from_numpy(a).to(dev)
             for a in synthetic.contact_batch(B=TIMED_BATCH, L=L, seed=L))
-        rows.append({
-            "kernel": "contact_degrees", "bucket": L, "D": None,
-            "dtype": "float32",
-            "ms": cuda_ms(lambda: gc.contact_degrees(coords, ins, lengths)),
-            "plain_ms": cuda_ms(
-                lambda: gc.contact_degrees_ref(coords, ins, lengths))})
+        rows.append(timed_row(
+            "contact_degrees",
+            lambda: gc.contact_degrees(coords, ins, lengths),
+            lambda: gc.contact_degrees_ref(coords, ins, lengths),
+            kernel_bound("contact_degrees", coords, lengths),
+            bucket=L, D=None, dtype="float32", library_ms=None))
         for D in (1024, 512):
             xs = torch.randn((TIMED_BATCH, L, D), device=dev)
             for cdt in ("bfloat16", "float32"):
-                rows.append({
-                    "kernel": "graphconv_aggregate", "bucket": L, "D": D,
-                    "dtype": cdt,
-                    "ms": cuda_ms(lambda: gc.graphconv_aggregate(
-                        coords, ins, lengths, xs, compute_dtype=cdt)),
-                    "plain_ms": cuda_ms(lambda: gc.graphconv_aggregate_ref(
-                        coords, ins, lengths, xs, compute_dtype=cdt))})
+                lib_ms, lib_dtype = bmm_library_ms(coords, ins, lengths, xs,
+                                                   cdt)
+                rows.append(timed_row(
+                    "graphconv_aggregate",
+                    lambda: gc.graphconv_aggregate(coords, ins, lengths, xs,
+                                                   compute_dtype=cdt),
+                    lambda: gc.graphconv_aggregate_ref(
+                        coords, ins, lengths, xs, compute_dtype=cdt),
+                    kernel_bound("graphconv_aggregate", coords, lengths, D,
+                                 planes=3 if cdt == "float32" else 1),
+                    bucket=L, D=D, dtype=cdt, library_ms=lib_ms,
+                    library_out_dtype=lib_dtype))
     return rows
 
 
 def kernel_device_ms(fn, name: str, iters: int = 10) -> float | None:
     """Mean device time of the CUDA kernel ``name`` over ``iters`` calls of
-    ``fn``, from ``torch.profiler``; None if the trace shows no such
+    ``fn``, from ``torch.profiler``; None if two traces show no such
     kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if name in e.key]
-    if not hits:
-        return None
-    return (sum(e.device_time_total for e in hits)
-            / sum(e.count for e in hits) / 1e3)
+    for _ in range(2):  # a trace now and then comes back without the kernel
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if name in e.key]
+        if hits:
+            return (sum(e.device_time_total for e in hits)
+                    / sum(e.count for e in hits) / 1e3)
+    return None
 
 
 def contact_map_times(dev):
-    """B3 and its twin at the fine-tuning path's shapes (B=8) and B=32:
-    CUDA-event time per call (host launch included) and the kernel's own
-    device time."""
+    """B3 and its twin at the fine-tuning path's shapes (B=8) and B=32,
+    with each launch's bound (no single PyTorch call computes the map)."""
     rows = []
     for B in (FT_BATCH, TIMED_BATCH):
         for L in BUCKETS:
             coords, _, lengths = (
                 torch.from_numpy(a).to(dev)
                 for a in synthetic.contact_batch(B=B, L=L, seed=L + B))
-
-            def kernel():
-                return contact.contact_map_fused(coords, lengths)
-
-            rows.append({
-                "kernel": "contact_map", "B": B, "bucket": L,
-                "ms": cuda_ms(kernel),
-                "plain_ms": cuda_ms(lambda: contact.batched_contact_maps(
-                    coords, lengths)),
-                "device_ms": kernel_device_ms(kernel, "contact_map_kernel")})
+            rows.append(timed_row(
+                "contact_map",
+                lambda: contact.contact_map_fused(coords, lengths),
+                lambda: contact.batched_contact_maps(coords, lengths),
+                kernel_bound("contact_map", coords, lengths),
+                B=B, bucket=L, library_ms=None))
     return rows
 
 
@@ -1198,6 +1306,7 @@ def main() -> int:
         for line in log_path.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {line.strip()}")
+    check_hgmma(lib_path)
 
     # Phase 3: kernels against their plain twins.
     log("phase 3: kernels vs plain twins")
@@ -1280,8 +1389,10 @@ def main() -> int:
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": errors[name], "ms": headline(name)["ms"],
-         "plain_ms": headline(name)["plain_ms"]}
+         "max_abs_err": errors[name],
+         **{k: headline(name)[k] for k in (
+             "ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
+             "library_ms")}}
         for name in ("graphconv_aggregate", "contact_degrees",
                      "contact_map")]}
     log(json.dumps(summary))

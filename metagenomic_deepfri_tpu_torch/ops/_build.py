@@ -77,6 +77,28 @@ def build_library() -> Path:
     return lib
 
 
+def kernel_sass(lib: Path) -> dict[str, str]:
+    """SASS of each kernel in the built library, by mangled name, from the
+    ``cuobjdump`` beside nvcc (what the card runs, e.g. to check that a
+    kernel issues ``HGMMA``)."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        raise KernelBuildError(f"cuobjdump not found beside nvcc ({tool})")
+    proc = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise KernelBuildError(f"cuobjdump failed with exit code "
+                               f"{proc.returncode}:\n{proc.stderr}")
+    kernels, name = {}, None
+    for line in proc.stdout.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            kernels[name] = ""
+        elif name is not None:
+            kernels[name] += line + "\n"
+    return kernels
+
+
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernels, with every signature set.

@@ -124,18 +124,35 @@ def _check_kernel_inputs(coords: torch.Tensor, others) -> None:
     if coords.shape[0] > _MAX_GRID_BATCH:
         raise ValueError(f"batch {coords.shape[0]} exceeds the kernels' grid "
                          "limit")
-    for name, t, dtype, shape in [
-            ("coords", coords, torch.float32, tuple(coords.shape)), *others]:
-        if t.device != coords.device:
-            raise ValueError(f"{name} is on {t.device}, coords on "
-                             f"{coords.device}")
+    device = coords.device
+    for name, t, dtype, shape in (
+            ("coords", coords, torch.float32, coords.shape), *others):
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, coords on {device}")
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got "
+        if t.shape != shape:
+            raise ValueError(f"{name} must have shape {tuple(shape)}, got "
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(device: torch.device, entry, *args) -> int:
+    """Call the C entry point ``entry(*args, stream)`` on ``device``'s
+    current stream, with ``device`` current; returns its CUDA error code.
+
+    The stream is read as a raw ``cudaStream_t`` and a device guard is
+    entered only when another device is current: building a
+    ``torch.cuda.Stream`` and entering ``torch.cuda.device`` on every call
+    cost more host time than a short kernel runs (``chip_smoke.py``
+    reports each kernel's host time per launch).
+    """
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        return entry(*args, stream)
+    with torch.cuda.device(device):
+        return entry(*args, stream)
 
 
 def contact_map_fused(coords: torch.Tensor, lengths: torch.Tensor,
@@ -159,11 +176,8 @@ def contact_map_fused(coords: torch.Tensor, lengths: torch.Tensor,
     if B == 0 or L == 0:
         return out
     lib = _build.load_library()
-    with torch.cuda.device(coords.device):
-        stream = torch.cuda.current_stream(coords.device).cuda_stream
-        code = lib.mdf_contact_map(coords.data_ptr(), lengths.data_ptr(),
-                                   out.data_ptr(), B, L, _thr2(threshold),
-                                   stream)
+    code = _launch(coords.device, lib.mdf_contact_map, coords.data_ptr(),
+                   lengths.data_ptr(), out.data_ptr(), B, L, _thr2(threshold))
     _build.check(lib, code, "contact_map_fused")
     contact_map_fused.launches += 1
     return out

@@ -12,6 +12,11 @@ launches the kernel or raises. There is no fallback from one to the other.
 Each wrapper counts its kernel launches in a plain integer attribute,
 ``<wrapper>.launches``.
 
+The aggregation kernel multiplies on the tensor cores in bfloat16: for
+float32 compute it splits each xs element into three bf16 planes
+(:func:`_split_bf16x3`, which the kernel mirrors) whose products with the
+{0, 1} adjacency are exact.
+
 Normalisation identity used by :func:`normalized_aggregate`:
 ``D^{-1/2} A D^{-1/2} X = D^{-1/2} · aggregate(coords, D^{-1/2} ⊙ X)``.
 """
@@ -24,7 +29,7 @@ from metagenomic_deepfri_tpu_torch.ops import _build
 from metagenomic_deepfri_tpu_torch.ops.cmap_align import \
     aligned_contacts_from_coords
 from metagenomic_deepfri_tpu_torch.ops.contact import (_check_kernel_inputs,
-                                                       _route, _thr2)
+                                                       _launch, _route, _thr2)
 
 _COMPUTE_DTYPES = ("float32", "bfloat16")
 
@@ -37,6 +42,29 @@ def _check_inputs(coords, ins_mask, lengths, xs=None):
     if xs is not None:
         named.append(("xs", xs, torch.float32, (B, L, xs.shape[-1])))
     _check_kernel_inputs(coords, named)
+
+
+def _split_bf16x3(x: torch.Tensor):
+    """float32 x → bfloat16 planes (hi, mid, lo) with hi + mid + lo == x.
+
+    hi = bf16_rn(x), mid = bf16_rn(x - hi), lo = bf16_rn(x - hi - mid),
+    each difference taken in float32 (where it is exact). Three 8-bit
+    significands hold float32's 24 bits, so the sum is exact for every finite
+    |x| in [2**-103, 3.3895e38] (bf16's largest finite value), with every
+    nonzero plane a normal bfloat16. Below 2**-103 lo may be a bf16
+    subnormal (which tensor cores may flush to zero), and below about
+    2**-110 bits fall under bf16's smallest subnormal, 2**-133. Where hi is
+    not finite (x infinite or NaN, or past bf16's range) it carries x alone
+    and mid = lo = 0. The aggregation kernel splits xs this way for float32
+    compute.
+    """
+    x = x.to(torch.float32)
+    hi = x.to(torch.bfloat16)
+    rest = torch.where(torch.isfinite(hi), x - hi.to(torch.float32),
+                       torch.zeros_like(x))
+    mid = rest.to(torch.bfloat16)
+    lo = (rest - mid.to(torch.float32)).to(torch.bfloat16)
+    return hi, mid, lo
 
 
 def contact_degrees_ref(coords, ins_mask, lengths, threshold: float = 6.0,
@@ -86,12 +114,9 @@ def contact_degrees(coords: torch.Tensor, ins_mask: torch.Tensor,
     if B == 0 or L == 0:
         return deg
     lib = _build.load_library()
-    with torch.cuda.device(coords.device):
-        stream = torch.cuda.current_stream(coords.device).cuda_stream
-        code = lib.mdf_contact_degrees(
-            coords.data_ptr(), ins_mask.data_ptr(), lengths.data_ptr(),
-            deg.data_ptr(), B, L, _thr2(threshold), int(generated_contacts),
-            stream)
+    code = _launch(coords.device, lib.mdf_contact_degrees, coords.data_ptr(),
+                   ins_mask.data_ptr(), lengths.data_ptr(), deg.data_ptr(),
+                   B, L, _thr2(threshold), int(generated_contacts))
     _build.check(lib, code, "contact_degrees")
     contact_degrees.launches += 1
     return deg
@@ -126,13 +151,10 @@ def graphconv_aggregate(coords: torch.Tensor, ins_mask: torch.Tensor,
     if B == 0 or L == 0 or D == 0:
         return out
     lib = _build.load_library()
-    with torch.cuda.device(coords.device):
-        stream = torch.cuda.current_stream(coords.device).cuda_stream
-        code = lib.mdf_graphconv_aggregate(
-            coords.data_ptr(), ins_mask.data_ptr(), lengths.data_ptr(),
-            xs.data_ptr(), out.data_ptr(), B, L, D, _thr2(threshold),
-            int(generated_contacts), int(compute_dtype == "bfloat16"),
-            stream)
+    code = _launch(coords.device, lib.mdf_graphconv_aggregate,
+                   coords.data_ptr(), ins_mask.data_ptr(), lengths.data_ptr(),
+                   xs.data_ptr(), out.data_ptr(), B, L, D, _thr2(threshold),
+                   int(generated_contacts), int(compute_dtype == "bfloat16"))
     _build.check(lib, code, "graphconv_aggregate")
     graphconv_aggregate.launches += 1
     return out

@@ -54,9 +54,32 @@ def _on(device, coords, ins, lengths):
             torch.from_numpy(lengths).to(device))
 
 
-@pytest.mark.parametrize("L", [130, 512])
+EDGE_L = [1, 63, 64, 65, 130, 512, 1000]
+
+
+def _edge_batch(device, L, seed):
+    """contact_batch(B=4, L) with lengths 0, 1 and L in the same batch (the
+    fourth protein keeps its random length)."""
+    coords, ins, lengths = contact_batch(B=4, L=max(L, 16), seed=seed)
+    coords, ins = coords[:, :L].copy(), ins[:, :L].copy()
+    lengths = np.minimum(lengths, L)
+    lengths[:3] = (0, min(1, L), L)
+    return _on(device, coords, ins, lengths.astype(np.int32))
+
+
+def _features(B, L, D, seed):
+    """Seeded float32 features; columns d % 3 == 0 scaled by 1e30 (one sign
+    a column, so sums do not cancel), d % 3 == 1 by 1e-30."""
+    xs = np.random.default_rng(seed).normal(size=(B, L, D))
+    sign = np.where(np.arange(0, D, 3) % 2 == 0, 1.0, -1.0)
+    xs[..., 0::3] = np.abs(xs[..., 0::3]) * 1e30 * sign
+    xs[..., 1::3] *= 1e-30
+    return torch.from_numpy(xs.astype(np.float32))
+
+
+@pytest.mark.parametrize("L", EDGE_L)
 def test_degrees_exact(cuda, L):
-    args = _on(cuda, *contact_batch(B=4, L=L, seed=L))
+    args = _edge_batch(cuda, L, seed=L)
     before = gc.contact_degrees.launches
     deg = gc.contact_degrees(*args)
     ref = gc.contact_degrees_ref(*args)
@@ -72,12 +95,14 @@ def test_degrees_near_threshold_exact(cuda):
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [48, 512, 1024])
-@pytest.mark.parametrize("L", [130, 512])
+@pytest.mark.parametrize("D", [37, 48, 200, 512, 1024])
+@pytest.mark.parametrize("L", EDGE_L)
 def test_aggregate_matches_twin(cuda, L, D, compute_dtype):
-    coords, ins, lengths = _on(cuda, *contact_batch(B=4, L=L, seed=D + L))
-    g = torch.Generator().manual_seed(D)
-    xs = torch.randn((4, L, D), generator=g).to(cuda)
+    """Every D is accepted: D % 4 != 0 (37) takes 4-byte cp.async copies
+    instead of TMA, odd D scalar stores; features mix magnitudes 1e30, 1
+    and 1e-30."""
+    coords, ins, lengths = _edge_batch(cuda, L, seed=D + L)
+    xs = _features(4, L, D, seed=D).to(cuda)
     before = gc.graphconv_aggregate.launches
     out = gc.graphconv_aggregate(coords, ins, lengths, xs,
                                  compute_dtype=compute_dtype)

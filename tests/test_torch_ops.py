@@ -114,6 +114,56 @@ def test_graphconv_aggregate_bf16_matches_pallas():
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-4)
 
 
+def test_split_bf16x3_exact():
+    """hi + mid + lo == x in float64 across exponents 1e-30 to 1e30, both
+    signs and zero; every plane is bfloat16, and a nonzero plane is a normal
+    bf16 (>= 2**-126), so a tensor core that flushes subnormals loses
+    nothing in this range."""
+    rng = np.random.default_rng(21)
+    mag = 10.0 ** rng.uniform(-30.0, 30.0, 50_000)
+    x = np.concatenate([mag * rng.choice([-1.0, 1.0], mag.size),
+                        [0.0, -0.0, 1e-30, -1e30, 2.0 ** -103]])
+    x = torch.from_numpy(x.astype(np.float32))
+    planes = gc._split_bf16x3(x)
+    assert all(p.dtype == torch.bfloat16 for p in planes)
+    total = sum(p.to(torch.float64) for p in planes)
+    assert torch.equal(total, x.to(torch.float64))
+    for p in planes:
+        v = p.to(torch.float64).abs()
+        assert bool(((v == 0) | (v >= 2.0 ** -126)).all())
+
+
+def test_split_bf16x3_limits():
+    """The stated limits: exact down to 2**-110 (lo then a bf16 subnormal),
+    bits lost below it; past bf16's largest finite value hi is infinite and
+    carries x alone, as do infinities and NaN."""
+    ulp = 1.0 + 2.0 ** -23
+    x = torch.tensor([2.0 ** -110 * ulp, 2.0 ** -111 * ulp, 3.3895e38,
+                      3.4e38, float("inf"), float("nan")],
+                     dtype=torch.float32)
+    hi, mid, lo = gc._split_bf16x3(x)
+    total = (hi.to(torch.float64) + mid.to(torch.float64)
+             + lo.to(torch.float64))
+    exact = (total == x.to(torch.float64)).tolist()
+    assert exact[:3] == [True, False, True]
+    assert torch.isinf(hi[3]) and torch.isinf(hi[4]) and torch.isnan(hi[5])
+    assert not bool(mid[3:].any()) and not bool(lo[3:].any())
+
+
+@pytest.mark.parametrize("L", [96, 130])
+def test_split_bf16x3_planes_match_pallas(L):
+    """The kernel's float32 arithmetic on the CPU: the three planes, each
+    through the twin's float32 bmm, summed, against the Pallas kernel in
+    float32 (interpret mode)."""
+    batch = contact_batch(B=2, L=L, seed=L + 5)
+    xs = np.random.default_rng(L).normal(size=(2, L, 40)).astype(np.float32)
+    ref = np.asarray(jax_gc.graphconv_aggregate(
+        *_jax(*batch), jnp.asarray(xs), interpret=True))
+    out = sum(gc.graphconv_aggregate_ref(*_torch(*batch), p.to(torch.float32))
+              for p in gc._split_bf16x3(torch.from_numpy(xs)))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-4)
+
+
 @pytest.mark.parametrize("adj_norm", ["sym", "row", "none"])
 def test_normalized_aggregate_matches_pallas(adj_norm):
     batch = contact_batch(B=2, L=96, seed=11)
