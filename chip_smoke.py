@@ -16,7 +16,9 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    (pairs at 6 Å ± 1 ulp): degrees and contact maps exact, aggregation
    rtol 1e-5 / atol 1e-4 for D ∈ {37, 48, 200, 512, 1024} in float32 and
    bfloat16 compute (D = 37 takes 4-byte copies; D = 200 mixes features
-   of magnitude 1e30, 1 and 1e-30).
+   of magnitude 1e30, 1 and 1e-30), and float32 for D ∈ {48, 1024} with
+   one finite feature past bfloat16's range (up to float32's largest) in
+   each protein: finite, within the same tolerance.
 4. The inference slice at full published width: three GCN modes (bp 3992,
    cc 320, mf 489 terms; LSTM-LM 512×2, embed 1024, GraphConv 512×3,
    FC 1024) with seeded random weights, 96 alignment-projected proteins of
@@ -79,20 +81,40 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    queries/s, run A's stage profile, GCN batches and peak device memory,
    the device's busy share of run A repeated under ``torch.profiler``
    (run C), and the g++ version.
-8. Prints the kernel summary (launches on the main path, max |Δ|, ms,
-   plain, device, bound and library ms), the card's name and power limit,
-   and last ``{"ok": true, "device": {...}}``.
+8. The resident annotation server (``serving.AnnotationServer(device=
+   "cuda")``) on phase 6's weights and phase 7's structures, with run A's
+   search settings and threads, answering over its Unix socket from a
+   thread: one cold request of 8 proteins, 16 single-protein requests in
+   sequence (idle), then 48 requests of 1–32 proteins (seeded sizes) from 8
+   concurrent clients (load), drawn from phase 7's hit, no-hit and
+   selenoprotein queries. Checks: each response covers its request's ids;
+   hits aligned to their own structure, no random query aligned,
+   selenoproteins skipped; scores ≥ 0.1 and sorted; every served protein's
+   rows equal run A's ``results.tsv`` rows (scores within one unit of the
+   4th decimal, a term within that of 0.1 on one side only); 3 B1 and 1 B2
+   launches per mode per GCN batch the server ran; a ``score_topk=256``
+   server gives the dense server's responses on 4 fixed requests. Prints
+   the cold latency, idle and loaded p50/p90/p99, proteins/s under load,
+   requests coalesced per pass, the engine's share of the passes' time,
+   the device's busy share of two load-sized passes under
+   ``torch.profiler``, and peak device memory.
+9. Prints the kernel summary (launches on the main path, phases 4–8, max
+   |Δ|, ms, plain, device, bound and library ms), the card's name and power
+   limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import logging
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -173,6 +195,14 @@ P7_ORACLE_ATOL = 1e-4
 # One unit of results.tsv's 4th decimal (and the rounding of two values).
 P7_SCORE_ATOL = 1e-4 + 1e-9
 P7_RUN_B_TIMEOUT = 600
+# Phase 8: the resident server on phase 6's weights and phase 7's inputs.
+P8_COLD = 8
+P8_IDLE = 16
+P8_LOAD_REQUESTS = 48
+P8_LOAD_CLIENTS = 8
+P8_LOAD_SIZES = (1, 32)
+P8_TOPK_REQUESTS = 4
+P8_TOPK_SIZE = 16
 SOURCES = {
     "graphconv_aggregate": "metagenomic_deepfri_tpu_torch/csrc/graphconv.cu",
     "contact_degrees": "metagenomic_deepfri_tpu_torch/csrc/graphconv.cu",
@@ -317,6 +347,24 @@ def phase_kernels(dev):
                     log(f"  graphconv_aggregate {name} D={D} {cdt}: "
                         f"max|Δ|={d:.3g}")
                 torch.testing.assert_close(out, ref, **AGG_TOL)
+        for D in (48, 1024):  # one finite value past bf16's range a protein
+            xs = torch.from_numpy(synthetic.with_float32_extremes(
+                torch.randn((coords.shape[0], coords.shape[1], D),
+                            generator=g).numpy(),
+                lengths.cpu().numpy())).to(dev)
+            out = gc.graphconv_aggregate(coords, ins, lengths, xs)
+            ref = gc.graphconv_aggregate_ref(coords, ins, lengths, xs)
+            torch.cuda.synchronize()
+            if not (bool(torch.isfinite(out).all())
+                    and bool(torch.isfinite(ref).all())):
+                raise AssertionError(f"graphconv_aggregate {name} D={D}: "
+                                     "non-finite sums of finite features")
+            used = ((out - ref).abs() / (AGG_TOL["atol"] + AGG_TOL[
+                "rtol"] * ref.abs())).max().item()
+            log(f"  graphconv_aggregate {name} D={D} float32 (one feature "
+                f"past bf16's range a protein, |ref| up to "
+                f"{ref.abs().max().item():.5g}): tolerance used {used:.3g}")
+            torch.testing.assert_close(out, ref, **AGG_TOL)
     return err
 
 
@@ -1282,6 +1330,241 @@ def phase_predict(dev, smi, weights: Path, root: Path, device_arg: str):
     log(f"  results.tsv: {n_rows} rows, every mode, all ≥ "
         f"{SCORE_THRESHOLD}, sorted; results_propagated.tsv "
         f"{len(read_tsv(out_a / 'results_propagated.tsv')[1])} rows")
+    return launches, (structures, queries, hits, threads)
+
+
+def percentiles(ms: list) -> dict:
+    """p50/p90/p99 of latencies in ms, and their count."""
+    return {"n": len(ms), **{f"p{q}": float(np.percentile(ms, q))
+                             for q in (50, 90, 99)}}
+
+
+def run_a_scores(out_a: Path) -> dict:
+    """{(protein, network, mode name): {term: score}} of run A's
+    results.tsv."""
+    _, rows = read_tsv(out_a / "results.tsv")
+    out = {}
+    for r in rows:
+        out.setdefault(tuple(r[:3]), {})[r[3]] = float(r[4])
+    return out
+
+
+def rows_agree(want: dict, have: dict, what) -> float:
+    """Same terms with scores within P7_SCORE_ATOL, but a term within that
+    of the threshold may be on one side only; returns the largest |Δ|."""
+    worst = 0.0
+    for term in want.keys() | have.keys():
+        if term in want and term in have:
+            worst = max(worst, abs(want[term] - have[term]))
+            if worst > P7_SCORE_ATOL:
+                raise AssertionError(f"{what} {term}: {want[term]} vs "
+                                     f"{have[term]}")
+        elif (want.get(term) or have.get(term)) > \
+                SCORE_THRESHOLD + P7_SCORE_ATOL:
+            raise AssertionError(f"{what} {term}: on one side only")
+    return worst
+
+
+def check_response(req: dict, resp: dict, hits: dict, ref: dict) -> float:
+    """Phase 8's checks of one response against its request, the hit map
+    and run A's rows (``ref``, from :func:`run_a_scores`); returns the
+    largest score |Δ| against run A."""
+    if "error" in resp:
+        raise AssertionError(f"server error: {resp['error']}")
+    res, skipped = resp["results"], resp["skipped"]
+    if set(res) | set(skipped) != set(req) or set(res) & set(skipped):
+        raise AssertionError("response ids differ from the request's")
+    worst = 0.0
+    for qid, seq in req.items():
+        if "U" in seq:
+            if skipped.get(qid) != "selenocysteine":
+                raise AssertionError(f"{qid}: selenoprotein not skipped")
+            continue
+        entry = res[qid]
+        want_target = hits.get(qid)
+        if (entry["aligned"], entry.get("target")) != (
+                want_target is not None, want_target):
+            raise AssertionError(f"{qid}: aligned to {entry.get('target')}, "
+                                 f"want {want_target}")
+        if set(entry["scores"]) != set(MODES):
+            raise AssertionError(f"{qid}: modes {sorted(entry['scores'])}")
+        for mode, rows in entry["scores"].items():
+            scores = [s for _, s, _ in rows]
+            if scores != sorted(scores, reverse=True) or (
+                    scores and min(scores) < SCORE_THRESHOLD):
+                raise AssertionError(f"{qid}/{mode}: scores unsorted or "
+                                     "below the threshold")
+            worst = max(worst, rows_agree(
+                ref.get((qid, entry["network"], MODE_NAMES[mode]), {}),
+                {t: s for t, s, _ in rows}, f"{qid}/{mode}"))
+    return worst
+
+
+def phase_serve(dev, smi, weights: Path, root: Path, inputs, device_arg: str):
+    """Phase 8: the resident annotation server on phase 6's weights and
+    phase 7's structures, over its Unix socket: a cold request, idle single
+    requests, then concurrent load; the served rows held to run A's
+    results.tsv, and a top-k server to the dense one. Returns the B1/B2
+    launches of the phase."""
+    from metagenomic_deepfri_tpu_torch.data.fasta import load_fasta_as_dict
+    from metagenomic_deepfri_tpu_torch.serving import (AnnotationServer,
+                                                       annotate_over_socket)
+
+    structures, queries_path, hits, threads = inputs
+    seqs = load_fasta_as_dict(queries_path)
+    pool = [q for q in seqs if not q.startswith("long")]
+    ref = run_a_scores(root / "run_a")
+    rng = np.random.default_rng(SEED + 80)
+
+    def request(n):
+        ids = rng.choice(pool, size=n, replace=False)
+        return {str(q): seqs[q] for q in ids}
+
+    kw = dict(databases=[structures], processing_modes=list(MODES),
+              max_eval=1e-3, min_ident=0.5, min_coverage=0.9, top_k=5,
+              threads=threads, device=device_arg)  # run A's search settings
+    gcn_batch_modes = []  # modes run in each GCN batch
+    real_run_batch = BatchedPredictor._run_batch
+    secs = {"engine": 0.0, "passes": 0.0}  # host clock, summed
+
+    def spy(self, bucket, chunk, batch, modes, net="gcn_coords",
+            overflow_cb=None):
+        if net == "gcn_coords":
+            gcn_batch_modes.append(len(modes))
+        t = time.perf_counter()
+        out = real_run_batch(self, bucket, chunk, batch, modes, net,
+                             overflow_cb)  # ends with the fetch to the host
+        secs["engine"] += time.perf_counter() - t
+        return out
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = AnnotationServer(weights, **kw)
+    log(f"phase 8: server up in {time.perf_counter() - t0:.2f} s "
+        f"({device_arg}, {len(MODES)} modes, {threads} threads)")
+    coalesced = []
+    real_drain = srv._drain_once
+
+    def drain(*args, **kwargs):
+        t = time.perf_counter()
+        n = real_drain(*args, **kwargs)
+        if n:
+            coalesced.append(n)
+            secs["passes"] += time.perf_counter() - t
+        return n
+
+    srv._drain_once = drain
+    sock_dir = tempfile.mkdtemp()  # Unix socket paths are short
+    sock = Path(sock_dir) / "serve.sock"
+    ready = threading.Event()
+    server_thread = threading.Thread(target=srv.serve_unix,
+                                     args=(sock, ready), daemon=True)
+    worst = 0.0
+    BatchedPredictor._run_batch = spy
+    reset_launch_counts()
+    try:
+        server_thread.start()
+        if not ready.wait(30):
+            raise AssertionError("the server did not start")
+
+        def timed_request(req):
+            t = time.perf_counter()
+            resp = annotate_over_socket(sock, req, timeout=300)
+            return resp, 1e3 * (time.perf_counter() - t)
+
+        cold_req = request(P8_COLD)
+        cold, cold_ms = timed_request(cold_req)
+        worst = max(worst, check_response(cold_req, cold, hits, ref))
+        idle_ms = []
+        for _ in range(P8_IDLE):
+            req = request(1)
+            resp, ms = timed_request(req)
+            worst = max(worst, check_response(req, resp, hits, ref))
+            idle_ms.append(ms)
+        load_reqs = [request(int(rng.integers(P8_LOAD_SIZES[0],
+                                              P8_LOAD_SIZES[1] + 1)))
+                     for _ in range(P8_LOAD_REQUESTS)]
+        coalesced.clear()
+        secs.update(engine=0.0, passes=0.0)
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(P8_LOAD_CLIENTS) as ex:
+            load = list(ex.map(timed_request, load_reqs))
+        load_s = time.perf_counter() - t0
+        load_passes, load_secs = list(coalesced), dict(secs)
+        for req, (resp, _) in zip(load_reqs, load):
+            worst = max(worst, check_response(req, resp, hits, ref))
+        # Two passes of the load's first requests, merged as the batcher
+        # merges them, in this thread under torch.profiler (CUDA activity
+        # only): the device's busy share of a pass. (Profiling the batcher
+        # thread's passes from here slowed them ~8x.)
+        from torch.profiler import ProfilerActivity, profile
+
+        passes = [{f"r{i}\x1f{q}": seq for i, req in enumerate(
+            load_reqs[k:k + P8_LOAD_CLIENTS]) for q, seq in req.items()}
+            for k in (0, P8_LOAD_CLIENTS)]
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for merged in passes:
+                srv.annotate(merged)
+        profiled_s = time.perf_counter() - t0
+        busy_s = sum(e.self_device_time_total
+                     for e in prof.key_averages()) / 1e6
+
+        fixed = [request(P8_TOPK_SIZE) for _ in range(P8_TOPK_REQUESTS)]
+        topk = AnnotationServer(weights, score_topk=TOPK, **kw)
+        topk_worst = 0.0
+        for req in fixed:
+            want, got = srv.annotate(dict(req)), topk.annotate(dict(req))
+            worst = max(worst, check_response(req, got, hits, ref))
+            for qid, entry in want["results"].items():
+                if {k: v for k, v in entry.items() if k != "scores"} != \
+                        {k: v for k, v in got["results"][qid].items()
+                         if k != "scores"}:
+                    raise AssertionError(f"top-k server: {qid} metadata")
+                for mode, rows in entry["scores"].items():
+                    topk_worst = max(topk_worst, rows_agree(
+                        {t: s for t, s, _ in rows},
+                        {t: s for t, s, _ in got["results"][qid]["scores"][
+                            mode]}, f"top-k {qid}/{mode}"))
+    finally:
+        BatchedPredictor._run_batch = real_run_batch
+        srv.shutdown()
+        server_thread.join(timeout=30)
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    launches = launch_counts()
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if dev.type == "cuda" else float("nan"))
+    if server_thread.is_alive():
+        raise AssertionError("the server thread did not stop")
+
+    gcn_modes = sum(gcn_batch_modes)
+    expect_launches(launches, {
+        "graphconv_aggregate": 3 * gcn_modes, "contact_degrees": gcn_modes,
+        "contact_map": 0},
+        f"phase 8, {len(gcn_batch_modes)} GCN batches ({gcn_modes} "
+        "batch-modes)")
+    load_ms = [ms for _, ms in load]
+    n_load = sum(len(r) for r in load_reqs)
+    stats = {
+        "cold_request_ms": cold_ms, "cold_proteins": P8_COLD,
+        "idle_ms": percentiles(idle_ms),
+        "load_ms": percentiles(load_ms), "load_requests": len(load_reqs),
+        "load_clients": P8_LOAD_CLIENTS, "load_proteins": n_load,
+        "load_s": load_s, "load_proteins_per_s": n_load / load_s,
+        "load_passes": len(load_passes),
+        "mean_requests_per_pass": float(np.mean(load_passes)),
+        "load_pass_s": load_secs["passes"],
+        "load_engine_s": load_secs["engine"],
+        "engine_share_of_passes": load_secs["engine"] / load_secs["passes"],
+        "profiled_passes": len(passes), "profiled_s": profiled_s,
+        "device_busy_s": busy_s, "device_busy_share": busy_s / profiled_s,
+        "peak_device_gib": peak}
+    log(f"  served rows vs run A's results.tsv: max|Δ|={worst:.3g} (atol "
+        f"{P7_SCORE_ATOL:.4g}); top-k {TOPK} server vs dense on "
+        f"{len(fixed)} requests: max|Δ|={topk_worst:.3g} (overflows re-run "
+        f"densely: {topk._dense_engine is not None})")
+    log(f"  serving {json.dumps(stats)} on {smi}")
     return launches
 
 
@@ -1374,9 +1657,14 @@ def main() -> int:
         weights = Path(tmp) / "weights"
         phase_models(dev, smi, items, weights)
         # Phase 7: predict-function end to end (B1/B2 in every GCN batch).
-        for name, n in phase_predict(dev, smi, weights, Path(tmp),
-                                     "cuda").items():
-            launches[name] += n
+        p7_launches, p7_inputs = phase_predict(dev, smi, weights, Path(tmp),
+                                               "cuda")
+        # Phase 8: the resident server over its socket (B1/B2 again).
+        p8_launches = phase_serve(dev, smi, weights, Path(tmp), p7_inputs,
+                                  "cuda")
+        for counts in (p7_launches, p8_launches):
+            for name, n in counts.items():
+                launches[name] += n
 
     def headline(name):
         if name == "contact_map":  # the fine-tuning batch: B=8, bucket 512

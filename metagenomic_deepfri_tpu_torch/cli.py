@@ -6,11 +6,11 @@
 The verbs of the JAX package's command line (``metagenomic_deepfri_tpu/
 cli.py``) with its flags, names and defaults: ``search-databases``,
 ``predict-function``, ``make-cmaps``, ``generate-config``, ``get-models``,
-``get-binaries``, ``finetune``, ``merge-results`` and ``verify-weights``,
-plus the group's ``--debug`` and ``--version``. The verbs that run a model
-(``predict-function``, ``finetune``, ``verify-weights``) take ``--device``,
-which is required: the port never picks a device by itself. ``serve`` and
-``benchmark`` are not ported.
+``get-binaries``, ``finetune``, ``merge-results``, ``verify-weights`` and
+``serve``, plus the group's ``--debug`` and ``--version``. The verbs that
+run a model (``predict-function``, ``finetune``, ``verify-weights``,
+``serve``) take ``--device``, which is required: the port never picks a
+device by itself. ``benchmark`` is not ported.
 
 The command line uses ``argparse`` only. A usage error prints the verb's
 full help and exits 2 (the JAX package's ``patch_usage_error``); a failed
@@ -315,6 +315,31 @@ def cmd_verify_weights(args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    """Run a resident annotation server on a Unix socket (JSONL protocol).
+
+    Models stay on the device and databases stay indexed between requests:
+    the serving counterpart of ``predict-function``. One JSON object a
+    line, ``{"proteins": {id: sequence, ...}}`` in, ``{"results": ...,
+    "skipped": ...}`` out.
+    """
+    from metagenomic_deepfri_tpu_torch.serving import AnnotationServer
+
+    server = AnnotationServer(
+        args.weights,
+        databases=list(args.db_path),
+        processing_modes=args.processing_modes,
+        max_eval=args.mmseqs_max_evalue,
+        min_ident=args.mmseqs_min_identity,
+        min_coverage=args.mmseqs_min_coverage,
+        top_k=args.top_k,
+        threads=args.threads,
+        obo_path=args.obo,
+        device=args.device)
+    server.serve_unix(args.socket)
+    return 0
+
+
 def _device_option(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", required=True,
                    help="Where the models run: cuda, cuda:1, cpu.")
@@ -476,6 +501,44 @@ def _parser() -> argparse.ArgumentParser:
                    help="On failure, log a per-stage divergence report "
                         "(embed/gc*/pooled/fc*/logits).")
     p.add_argument("--seed", type=int, default=0)
+
+    p = verb("serve", cmd_serve,
+             "Run a resident annotation server on a Unix socket (JSONL "
+             "protocol).")
+    p.add_argument("-w", "--weights", required=True,
+                   type=_path_type(exists=True),
+                   help="Path to the folder containing model weights.")
+    _device_option(p)
+    p.add_argument("-d", "--db-path", action="append", default=[],
+                   type=_path_type(exists=True),
+                   help="Structure database(s): FoldComp, FASTA, or a "
+                        "directory of .pdb/.cif files; repeatable. Omit for "
+                        "sequence-only (CNN) serving.")
+    p.add_argument("--socket", required=True, type=Path,
+                   help="Unix socket path to listen on.")
+    p.add_argument("-p", "--processing-modes", action="append",
+                   choices=["bp", "cc", "mf", "ec"], default=None,
+                   help="Modes to serve; repeatable (default: all in "
+                        "model_config.json).")
+    p.add_argument("-t", "--threads", default=1, type=int,
+                   help="Number of threads to use (default: %(default)s).")
+    p.add_argument("--top-k", default=5, type=int,
+                   help="Number of top search hits to keep (default: "
+                        "%(default)s).")
+    p.add_argument("--mmseqs-max-evalue", default=1e-5, type=float,
+                   help="Maximum e-value for search hits (default: "
+                        "%(default)s).")
+    p.add_argument("--mmseqs-min-identity", default=0.5, type=float,
+                   help="Minimum identity for search hits (default: "
+                        "%(default)s).")
+    p.add_argument("--mmseqs-min-coverage", default=0.9, type=float,
+                   help="Minimum coverage for search hits (default: "
+                        "%(default)s).")
+    p.add_argument("--obo", default=None,
+                   type=_path_type(exists=True, dir_okay=False),
+                   help="go-basic.obo file: responses gain per-protein "
+                        "propagated_scores (true-path GO propagation, the "
+                        "serving analogue of results_propagated.tsv).")
     return parser
 
 

@@ -194,14 +194,15 @@ contact_degrees_kernel(const float* __restrict__ coords,
 //     are zeroed in the tail stage, so padding never reaches a product;
 //   - splits stage k + 1's float32 tile into bf16 planes (double-buffered,
 //     in the layout the wgmma B descriptor reads) and builds stage k + 1's
-//     A fragments. The split is x = hi + mid + lo with hi = bf16_rn(x),
-//     mid = bf16_rn(x - hi), lo = bf16_rn(x - hi - mid). Three 8-bit
+//     A fragments. The split is x = hi + mid + lo with hi = bf16_rz(x),
+//     mid = bf16_rz(x - hi), lo = x - hi - mid (exact in bf16). Three 8-bit
 //     significands hold float32's 24, so the split is exact for finite
-//     |x| in [2^-103, 3.39e38] (every nonzero plane a normal bf16); below
-//     2^-103 lo may be subnormal, and below about 2^-110 bits are lost. A
-//     non-finite hi (x infinite or NaN, or past bf16's largest finite
-//     value) carries x alone. bfloat16 compute uses hi only, the rounding
-//     of the plain twin and of the Pallas kernel;
+//     |x| from 2^-103 up to float32's largest value (every nonzero plane a
+//     normal bf16), and no plane or partial sum exceeds |x|. Below 2^-103
+//     lo may be subnormal, and below about 2^-110 bits are lost. An
+//     infinite or NaN x is carried by hi alone. bfloat16 compute uses
+//     bf16_rn(x) only, the rounding of the plain twin and of the Pallas
+//     kernel;
 //   - A * hi, A * mid and A * lo are exact products, so one A fragment feeds
 //     1 or 3 wgmmas into the same float32 accumulator.
 // What still bounds it on an H100 is the CUDA-core work beside the tensor
@@ -339,19 +340,40 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// bf16_rz of two floats, packed (x0 in the low half): the top 16 bits of
+// each; infinities stay infinite and NaN stays NaN.
+__device__ __forceinline__ uint32_t bf16x2_rz(float x0, float x1) {
+  uint32_t d;
+  asm("cvt.rz.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(x1), "f"(x0));
+  return d;
+}
+
+__device__ __forceinline__ float low_float(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+
+__device__ __forceinline__ float high_float(uint32_t v) {
+  return __uint_as_float(v & 0xFFFF0000u);
+}
+
 // Two elements' planes, each as a packed bf16 pair (x0 in the low half).
+// float32 compute truncates hi and mid, so that |hi| <= |x| and
+// |hi + mid| <= |x|: a finite x never gives an infinite plane or partial
+// sum (round to nearest would give hi = inf past 3.3895e38, and at
+// float32's largest value hi + mid = 2^128).
 template <int kPlanes>
 __device__ __forceinline__ void split(float x0, float x1, uint32_t* out) {
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
-  out[0] = bits(hi);
-  if constexpr (kPlanes == 3) {
-    const float h0 = __low2float(hi), h1 = __high2float(hi);
-    float r0 = isfinite(h0) ? __fsub_rn(x0, h0) : 0.f;
-    float r1 = isfinite(h1) ? __fsub_rn(x1, h1) : 0.f;
-    const __nv_bfloat162 mid = __floats2bfloat162_rn(r0, r1);
-    r0 = __fsub_rn(r0, __low2float(mid));
-    r1 = __fsub_rn(r1, __high2float(mid));
-    out[1] = bits(mid);
+  if constexpr (kPlanes == 1) {
+    out[0] = bits(__floats2bfloat162_rn(x0, x1));
+  } else {
+    const uint32_t hi = bf16x2_rz(x0, x1);
+    out[0] = hi;
+    float r0 = isfinite(x0) ? __fsub_rn(x0, low_float(hi)) : 0.f;
+    float r1 = isfinite(x1) ? __fsub_rn(x1, high_float(hi)) : 0.f;
+    const uint32_t mid = bf16x2_rz(r0, r1);
+    r0 = __fsub_rn(r0, low_float(mid));
+    r1 = __fsub_rn(r1, high_float(mid));
+    out[1] = mid;
     out[2] = bits(__floats2bfloat162_rn(r0, r1));
   }
 }

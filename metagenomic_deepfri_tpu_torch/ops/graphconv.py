@@ -44,25 +44,34 @@ def _check_inputs(coords, ins_mask, lengths, xs=None):
     _check_kernel_inputs(coords, named)
 
 
+def _bf16_rz(x: torch.Tensor) -> torch.Tensor:
+    """float32 → bfloat16 rounded toward zero: the top 16 bits (NaN stays
+    NaN, infinities stay infinite)."""
+    top = (x.view(torch.int32) & -65536).view(torch.float32)
+    return torch.where(torch.isnan(x), x, top).to(torch.bfloat16)
+
+
 def _split_bf16x3(x: torch.Tensor):
     """float32 x → bfloat16 planes (hi, mid, lo) with hi + mid + lo == x.
 
-    hi = bf16_rn(x), mid = bf16_rn(x - hi), lo = bf16_rn(x - hi - mid),
-    each difference taken in float32 (where it is exact). Three 8-bit
-    significands hold float32's 24 bits, so the sum is exact for every finite
-    |x| in [2**-103, 3.3895e38] (bf16's largest finite value), with every
-    nonzero plane a normal bfloat16. Below 2**-103 lo may be a bf16
+    hi = bf16_rz(x), mid = bf16_rz(x - hi), lo = x - hi - mid, each
+    difference taken in float32 (where it is exact), lo exact in bf16. Three
+    8-bit significands hold float32's 24 bits, so the sum is exact for every
+    finite |x| from 2**-103 up to float32's largest value, with every
+    nonzero plane a normal bfloat16. Truncation keeps |hi| and |hi + mid|
+    at most |x|, so a finite x gives no infinite plane or partial sum (with
+    round to nearest, hi is infinite past 3.3895e38, and at float32's
+    largest value hi + mid = 2**128). Below 2**-103 lo may be a bf16
     subnormal (which tensor cores may flush to zero), and below about
-    2**-110 bits fall under bf16's smallest subnormal, 2**-133. Where hi is
-    not finite (x infinite or NaN, or past bf16's range) it carries x alone
-    and mid = lo = 0. The aggregation kernel splits xs this way for float32
-    compute.
+    2**-110 bits fall under bf16's smallest subnormal, 2**-133. An infinite
+    or NaN x is carried by hi alone, with mid = lo = 0. The aggregation
+    kernel splits xs this way for float32 compute.
     """
     x = x.to(torch.float32)
-    hi = x.to(torch.bfloat16)
-    rest = torch.where(torch.isfinite(hi), x - hi.to(torch.float32),
+    hi = _bf16_rz(x)
+    rest = torch.where(torch.isfinite(x), x - hi.to(torch.float32),
                        torch.zeros_like(x))
-    mid = rest.to(torch.bfloat16)
+    mid = _bf16_rz(rest)
     lo = (rest - mid.to(torch.float32)).to(torch.bfloat16)
     return hi, mid, lo
 

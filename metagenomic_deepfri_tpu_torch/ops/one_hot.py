@@ -49,3 +49,21 @@ def tokens2onehot(tokens: torch.Tensor,
     """One-hot expansion of a (…, L) uint8/int token tensor → (…, L, 26)."""
     vocab = torch.arange(VOCAB_SIZE, dtype=torch.int64, device=tokens.device)
     return (tokens.to(torch.int64).unsqueeze(-1) == vocab).to(dtype)
+
+
+def batch_tokens(seqs: list[str], pad_to: int) -> tuple[np.ndarray, np.ndarray]:
+    """Tokenise and right-pad a list of sequences to a fixed length.
+
+    Returns ``(tokens (B, pad_to) uint8, lengths (B,) int32)`` on the host.
+    The padded region holds :data:`PAD_TOKEN` and must be masked downstream.
+    """
+    batch = np.full((len(seqs), pad_to), PAD_TOKEN, dtype=np.uint8)
+    lengths = np.zeros(len(seqs), dtype=np.int32)
+    for i, seq in enumerate(seqs):
+        tokens = seq2tokens(seq)
+        if tokens.shape[0] > pad_to:
+            raise ValueError(
+                f"Sequence length {tokens.shape[0]} exceeds pad_to={pad_to}")
+        batch[i, : tokens.shape[0]] = tokens
+        lengths[i] = tokens.shape[0]
+    return batch, lengths

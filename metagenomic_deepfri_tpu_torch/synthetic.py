@@ -91,6 +91,22 @@ def near_threshold_batch(B: int = 4, L: int = 512, seed: int = 0,
     return coords, ins, lengths
 
 
+# Finite float32 values that round past bfloat16's largest finite value
+# (3.3895e38), float32's largest among them.
+FLOAT32_EXTREMES = (3.4e38, -3.4028235e38, 3.3962e38, -3.4e38)
+
+
+def with_float32_extremes(xs: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """A copy of (B, L, D) features with one of :data:`FLOAT32_EXTREMES` in
+    each protein: row lengths[b] // 3 (a valid row), column b % D. One such
+    value a protein keeps every exact aggregation sum finite."""
+    out = np.array(xs, dtype=np.float32)
+    for b, n in enumerate(lengths):
+        out[b, int(n) // 3, b % out.shape[-1]] = FLOAT32_EXTREMES[
+            b % len(FLOAT32_EXTREMES)]
+    return out
+
+
 def _target_chain(rng, n: int) -> np.ndarray:
     steps = rng.normal(size=(n, 3))
     steps /= np.linalg.norm(steps, axis=1, keepdims=True) + 1e-9

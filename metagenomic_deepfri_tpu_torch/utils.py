@@ -4,9 +4,9 @@ Jax-free copies of ``metagenomic_deepfri_tpu/utils.py``: ``run_command``
 (``:27``), ``download_file`` (``:81``), ``download_model_weights`` (``:95``),
 ``generate_config_json`` (``:116``), ``load_deepfri_config`` (``:154``),
 ``remove_intermediate_files`` (``:181``), ``opener`` and ``get_json_values``
-(``:188-204``). A failed download raises :class:`DownloadError`, a
-``RuntimeError`` as in the JAX package, which the command line reports
-without a traceback.
+(``:188-204``), and ``stdout_warn`` (``:207``). A failed download raises
+:class:`DownloadError`, a ``RuntimeError`` as in the JAX package, which the
+command line reports without a traceback.
 """
 
 from __future__ import annotations
@@ -171,3 +171,12 @@ def get_json_values(config_json, key: str) -> List[str]:
     config_json = Path(config_json)
     assert config_json.exists(), f"Config json not found at {config_json}"
     return opener(str(config_json))[key]
+
+
+def stdout_warn(message, category, filename, lineno, file=None, line=None):
+    """A ``warnings.showwarning`` that writes to stdout (the log's stream)
+    instead of stderr."""
+    import warnings
+
+    sys.stdout.write(
+        warnings.formatwarning(message, category, filename, lineno))

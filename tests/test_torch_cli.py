@@ -3,10 +3,13 @@ the verbs and their help, ``predict-function`` on the CPU equal to calling
 the pipeline's functions, ``make-cmaps`` and ``generate-config`` equal to
 the JAX verbs' files, clean offline errors, and usage errors."""
 
+import argparse
 import json
 import shutil
 import subprocess
 import sys
+import tempfile
+import time
 import urllib.error
 import urllib.request
 from pathlib import Path
@@ -23,7 +26,7 @@ from test_torch_pipeline import run_pipeline, structure_fixture, \
 REPO = Path(__file__).resolve().parent.parent
 VERBS = ["search-databases", "predict-function", "make-cmaps",
          "generate-config", "get-models", "get-binaries", "finetune",
-         "merge-results", "verify-weights"]
+         "merge-results", "verify-weights", "serve"]
 
 
 @pytest.fixture(autouse=True)
@@ -79,7 +82,7 @@ def test_verb_help(verb, capsys):
                      "--top-k", "--skip-pdb", "--shard", "--db-path"):
             assert flag in out
     assert ("--device" in out) == (
-        verb in ("predict-function", "finetune", "verify-weights"))
+        verb in ("predict-function", "finetune", "verify-weights", "serve"))
 
 
 def test_usage_error_prints_full_help_and_exits_2(tmp_path, capsys):
@@ -223,3 +226,77 @@ def test_module_entry_point(tmp_path):
         text=True, timeout=120)
     assert proc.returncode == 2
     assert "--threshold" in proc.stderr and "--output_dir" in proc.stderr
+
+
+def _serve_actions():
+    sub = next(a for a in cli._parser()._actions
+               if isinstance(a, argparse._SubParsersAction))
+    return sub.choices["serve"]._option_string_actions
+
+
+def test_serve_parser_matches_jax_verb(tmp_path, capsys):
+    """``serve`` has the JAX verb's options and defaults, plus a required
+    ``--device``."""
+    jax_serve = jax_main.commands["serve"]
+    ours = _serve_actions()
+    jax_opts = {o: p for p in jax_serve.params for o in p.opts}
+    assert set(ours) - set(jax_opts) == {"--device", "-h", "--help"}
+    assert set(jax_opts) - set(ours) == set()
+    for opt in ("-t", "--top-k", "--mmseqs-max-evalue",
+                "--mmseqs-min-identity", "--mmseqs-min-coverage"):
+        assert ours[opt].default == jax_opts[opt].default, opt
+    assert ours["--socket"].required and ours["--device"].required
+    assert ours["-p"].choices == list(jax_opts["-p"].type.choices)
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["serve", "-w", str(tmp_path), "--socket",
+                  str(tmp_path / "s.sock")])
+    assert exc.value.code == 2
+    assert "required: --device" in capsys.readouterr().err
+
+
+def test_serve_verb_round_trip(weights_dir, tmp_path):
+    """``python -m metagenomic_deepfri_tpu_torch.cli serve --device cpu`` in
+    a subprocess answers one request over its socket as an in-process
+    server on the same weights and structures does."""
+    from metagenomic_deepfri_tpu_torch.serving import (AnnotationServer,
+                                                       annotate_over_socket)
+
+    fixture = structure_fixture(tmp_path / "fixture")
+    for side in ("sub", "ref"):
+        shutil.copytree(fixture / "structures", tmp_path / side / "structures")
+    queries = dict(line.split("\n", 1) for line in
+                   (fixture / "queries.faa").read_text()[1:].split("\n>"))
+    queries = {k: v.replace("\n", "") for k, v in queries.items()}
+    sock_dir = tempfile.mkdtemp()   # Unix socket paths are short
+    sock = Path(sock_dir) / "s.sock"
+    log = open(tmp_path / "serve.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "metagenomic_deepfri_tpu_torch.cli", "serve",
+         "-w", str(weights_dir), "-d", str(tmp_path / "sub" / "structures"),
+         "--socket", str(sock), "-p", "mf", "-p", "cc", "-t", "2",
+         "--mmseqs-max-evalue", "1e-3", "--device", "cpu"],
+        cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + 120
+        while True:  # until the server listens
+            try:
+                out = annotate_over_socket(sock, queries, timeout=120)
+                break
+            except (FileNotFoundError, ConnectionRefusedError):
+                assert proc.poll() is None, \
+                    (tmp_path / "serve.log").read_text()
+                assert time.monotonic() < deadline, "the server did not start"
+                time.sleep(0.2)
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+        log.close()
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    ref = AnnotationServer(weights_dir,
+                           databases=[tmp_path / "ref" / "structures"],
+                           processing_modes=["mf", "cc"], threads=2,
+                           max_eval=1e-3, device="cpu").annotate(queries)
+    assert out == json.loads(json.dumps(ref))
+    assert out["skipped"] == {"q_seleno": "selenocysteine"}
+    assert out["results"]["q_hit_a"]["target"] == "af_0"
+    assert out["results"]["q_nohit"]["network"] == "cnn"

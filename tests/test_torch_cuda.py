@@ -14,6 +14,10 @@ with one (and without JAX, which this file does not import), run them as
 """
 
 import dataclasses
+import shutil
+import tempfile
+import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -36,7 +40,8 @@ from metagenomic_deepfri_tpu_torch.ops.cmap_align import \
 from metagenomic_deepfri_tpu_torch.synthetic import (AMINO_ACIDS,
                                                      aligned_items,
                                                      contact_batch,
-                                                     near_threshold_batch)
+                                                     near_threshold_batch,
+                                                     with_float32_extremes)
 
 pytestmark = pytest.mark.cuda
 
@@ -110,6 +115,24 @@ def test_aggregate_matches_twin(cuda, L, D, compute_dtype):
                                      compute_dtype=compute_dtype)
     torch.cuda.synchronize()
     assert gc.graphconv_aggregate.launches == before + 1
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("D", [48, 1024])
+@pytest.mark.parametrize("L", [130, 512])
+def test_aggregate_float32_extremes(cuda, L, D):
+    """float32 compute with one finite value past bf16's range (up to
+    float32's largest) in a valid row of each protein: finite, and within
+    rtol 1e-5 / atol 1e-4 of the twin."""
+    coords, ins, lengths = contact_batch(B=4, L=L, seed=L + 1)
+    xs = np.random.default_rng(D).normal(size=(4, L, D))
+    xs = torch.from_numpy(with_float32_extremes(xs, lengths)).to(cuda)
+    coords, ins, lengths = _on(cuda, coords, ins, lengths)
+    out = gc.graphconv_aggregate(coords, ins, lengths, xs)
+    ref = gc.graphconv_aggregate_ref(coords, ins, lengths, xs)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(ref).all()) and ref.abs().max() >= 3.4e38
+    assert bool(torch.isfinite(out).all())
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4)
 
 
@@ -372,3 +395,71 @@ def test_pipeline_on_card_matches_cpu(cuda, tmp_path):
         assert a[:4] + a[5:] == b[:4] + b[5:]
         if a[4] != "score":
             assert abs(float(a[4]) - float(b[4])) <= 1e-4 + 1e-9
+
+
+def test_server_on_card_matches_cpu(cuda, tmp_path):
+    """``AnnotationServer(device="cuda:0")`` answers through its batcher
+    thread (whose current device is not set by the caller) and its socket
+    as the same server on the CPU does: the same ids, skips and metadata,
+    scores within one unit of the 4th decimal, B1/B2 launched."""
+    from metagenomic_deepfri_tpu_torch import synthetic
+    from metagenomic_deepfri_tpu_torch.serving import (AnnotationServer,
+                                                       annotate_over_socket)
+
+    db = synthetic.write_structure_db(tmp_path / "structures", 16, seed=5,
+                                      min_len=40, max_len=300)
+    rng = np.random.default_rng(6)
+    queries = {f"h{i}": synthetic.hit_query(rng, db[f"s{i}"])
+               for i in range(8)}
+    queries.update({f"n{i}": "".join(rng.choice(list(AMINO_ACIDS), 80))
+                    for i in range(4)})
+    queries["sel"] = "MKVU" + queries["n0"]
+    gcn, cnn = {}, {}
+    for i, mode in enumerate(("mf", "cc")):
+        gcfg = GCNConfig(n_labels=24, lm_hidden=32, lm_layers=1,
+                         embed_dim=32, gc_dims=(32, 32, 32), fc_dims=(32,),
+                         adj_norm="none")
+        ccfg = CNNConfig(n_labels=24, conv_filters=16, conv_kernels=(8, 16),
+                         fc_dims=(32,))
+        terms = synthetic.goterms(24)
+        gcn[mode] = (gcfg, gcn_params_to_numpy(init_gcn(
+            gcfg, torch.Generator().manual_seed(i), "cpu")), terms)
+        cnn[mode] = (ccfg, gcn_params_to_numpy(init_cnn(
+            ccfg, torch.Generator().manual_seed(10 + i), "cpu")), terms)
+    weights = synthetic.write_model_set(tmp_path / "weights", gcn, cnn)
+    kw = dict(databases=[tmp_path / "structures"], max_eval=1e-3, threads=4)
+    ref = AnnotationServer(weights, device="cpu", **kw).annotate(queries)
+    srv = AnnotationServer(weights, device="cuda:0", **kw)
+    before = gc.graphconv_aggregate.launches
+    got = srv.submit(dict(queries), timeout=300)
+    assert gc.graphconv_aggregate.launches > before
+    sock_dir = tempfile.mkdtemp()   # Unix socket paths are short
+    sock = Path(sock_dir) / "s.sock"
+    ready = threading.Event()
+    t = threading.Thread(target=srv.serve_unix, args=(sock, ready),
+                         daemon=True)
+    t.start()
+    try:
+        assert ready.wait(10)
+        assert annotate_over_socket(sock, {"h0": queries["h0"]})[
+            "results"]["h0"]["target"] == "s0"
+    finally:
+        srv.shutdown()
+        t.join(timeout=10)
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    assert got["skipped"] == ref["skipped"] == {"sel": "selenocysteine"}
+    assert set(got["results"]) == set(ref["results"])
+    for qid, r in ref["results"].items():
+        g = got["results"][qid]
+        assert {k: v for k, v in g.items() if k != "scores"} == \
+            {k: v for k, v in r.items() if k != "scores"}
+        for mode, rows in r["scores"].items():
+            want = {t: s for t, s, _ in rows}
+            have = {t: s for t, s, _ in g["scores"][mode]}
+            for term in want.keys() | have.keys():
+                if term in want and term in have:
+                    assert abs(want[term] - have[term]) <= 1e-4 + 1e-9
+                else:
+                    assert (want.get(term) or have.get(term)) <= 0.1 + 1e-4
+    assert got["results"]["h0"]["aligned"] and not \
+        got["results"]["n0"]["aligned"]

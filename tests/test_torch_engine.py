@@ -188,7 +188,7 @@ def test_port_imports_no_jax():
         "align.matrices", "align.pairwise", "data.fasta", "ontology.go",
         "parallel.multihost", "search.binaries", "search.database",
         "search.engine", "search.mmseqs", "search.pdb", "search.query",
-        "search.results")} <= set(mods)
+        "search.results", "serving", "contact_map")} <= set(mods)
     proc = _run_python(f"""
         import importlib, sys
         for name in {mods!r} + ["chip_smoke"]:

@@ -379,3 +379,54 @@ def test_download_error_offline(tmp_path, monkeypatch):
         utils.download_file("https://example.invalid/x.onnx",
                             tmp_path / "x.onnx")
     assert issubclass(utils.DownloadError, RuntimeError)
+
+
+def test_stdout_warn_matches_jax(capsys):
+    for fn in (utils.stdout_warn, jax_utils.stdout_warn):
+        fn("careful", UserWarning, "mod.py", 12)
+    out, err = capsys.readouterr()
+    first, second = out[:len(out) // 2], out[len(out) // 2:]
+    assert first == second and "mod.py:12: UserWarning: careful" in first
+    assert err == ""
+
+
+# ---- contact_map.py ----------------------------------------------------------
+
+def test_contact_map_api_matches_jax():
+    from metagenomic_deepfri_tpu import contact_map as jax_cm
+    from metagenomic_deepfri_tpu_torch import contact_map as cm
+
+    rng = np.random.default_rng(8)
+    steps = rng.normal(size=(60, 3))
+    steps /= np.linalg.norm(steps, axis=1, keepdims=True)
+    xyz = np.cumsum(3.8 * steps, axis=0)
+    for thr in (6.0, 8.0):
+        got = cm.CAlphaCoordinates("s", xyz).calculate_contact_map(thr)
+        ref = jax_cm.CAlphaCoordinates("s", xyz).calculate_contact_map(thr)
+        assert got.cmap.dtype == ref.cmap.dtype
+        np.testing.assert_array_equal(got.cmap, ref.cmap)
+        np.testing.assert_array_equal(got.sparsify(), ref.sparsify())
+        assert got.sparsify().dtype == np.int32
+    dist = cm.CAlphaCoordinates("s", xyz).calculate_distance_map()
+    np.testing.assert_array_equal(
+        dist.distance_map,
+        jax_cm.CAlphaCoordinates("s", xyz).calculate_distance_map()
+        .distance_map)
+
+    bad = [(lambda m: m.CAlphaCoordinates("s", np.zeros((4, 2))),
+            ValueError, "CA coordinates"),
+           (lambda m: m.CAlphaCoordinates("s", xyz).calculate_distance_map(
+               "euclidean"), NotImplementedError, "unsupported"),
+           (lambda m: m.DistanceMap(-np.ones((2, 2))), ValueError,
+            "negative"),
+           (lambda m: m.DistanceMap(np.ones((2, 2))), ValueError, "diagonal"),
+           (lambda m: m.DistanceMap(np.array([[0.0, 1.0], [2.0, 0.0]])),
+            ValueError, "asymmetric"),
+           (lambda m: m.ContactMap(np.array([[1, 1], [0, 1]])), ValueError,
+            "asymmetric"),
+           (lambda m: m.ContactMap(np.full((2, 2), 2)), ValueError,
+            "binary")]
+    for make, exc, match in bad:
+        for module in (cm, jax_cm):
+            with pytest.raises(exc, match=match):
+                make(module)

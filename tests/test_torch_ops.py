@@ -20,7 +20,8 @@ from metagenomic_deepfri_tpu_torch.ops import cmap_align, contact, one_hot
 from metagenomic_deepfri_tpu_torch.ops import graphconv as gc
 from metagenomic_deepfri_tpu_torch.synthetic import (aligned_protein,
                                                      contact_batch,
-                                                     near_threshold_batch)
+                                                     near_threshold_batch,
+                                                     with_float32_extremes)
 
 
 def _torch(*arrays):
@@ -135,32 +136,51 @@ def test_split_bf16x3_exact():
 
 def test_split_bf16x3_limits():
     """The stated limits: exact down to 2**-110 (lo then a bf16 subnormal),
-    bits lost below it; past bf16's largest finite value hi is infinite and
-    carries x alone, as do infinities and NaN."""
+    bits lost below it; exact up to float32's largest value, with hi at most
+    bf16's largest finite value (rounded toward zero) and hi + mid finite in
+    float32, as the kernel's accumulator adds them; infinities and NaN are
+    carried by hi alone."""
     ulp = 1.0 + 2.0 ** -23
-    x = torch.tensor([2.0 ** -110 * ulp, 2.0 ** -111 * ulp, 3.3895e38,
-                      3.4e38, float("inf"), float("nan")],
+    f32_max = float(torch.finfo(torch.float32).max)
+    big = [3.3895e38, 3.3962e38, 3.4e38, f32_max, -3.4e38, -f32_max]
+    x = torch.tensor([2.0 ** -110 * ulp, 2.0 ** -111 * ulp, *big,
+                      float("inf"), -float("inf"), float("nan")],
                      dtype=torch.float32)
     hi, mid, lo = gc._split_bf16x3(x)
     total = (hi.to(torch.float64) + mid.to(torch.float64)
              + lo.to(torch.float64))
     exact = (total == x.to(torch.float64)).tolist()
-    assert exact[:3] == [True, False, True]
-    assert torch.isinf(hi[3]) and torch.isinf(hi[4]) and torch.isnan(hi[5])
-    assert not bool(mid[3:].any()) and not bool(lo[3:].any())
+    n = 2 + len(big)
+    assert exact[:n] == [True, False] + [True] * len(big)
+    assert bool(torch.isfinite(hi[:n]).all())
+    assert bool(torch.isfinite(hi[:n].float() + mid[:n].float()).all())
+    bf16_max = torch.finfo(torch.bfloat16).max
+    assert hi[2:n].abs().to(torch.float64).max().item() == bf16_max
+    assert torch.equal(hi[n:n + 2].to(torch.float32),
+                       torch.tensor([float("inf"), -float("inf")]))
+    assert torch.isnan(hi[n + 2])
+    assert not bool(mid[n:].any()) and not bool(lo[n:].any())
 
 
-@pytest.mark.parametrize("L", [96, 130])
-def test_split_bf16x3_planes_match_pallas(L):
+@pytest.mark.parametrize("L,extremes", [(96, False), (130, False),
+                                        (130, True)],
+                         ids=["96", "130", "130-extremes"])
+def test_split_bf16x3_planes_match_pallas(L, extremes):
     """The kernel's float32 arithmetic on the CPU: the three planes, each
     through the twin's float32 bmm, summed, against the Pallas kernel in
-    float32 (interpret mode)."""
+    float32 (interpret mode); with ``extremes``, each protein also holds one
+    finite value past bf16's range in a valid row."""
     batch = contact_batch(B=2, L=L, seed=L + 5)
     xs = np.random.default_rng(L).normal(size=(2, L, 40)).astype(np.float32)
+    if extremes:
+        xs = with_float32_extremes(xs, batch[2])
     ref = np.asarray(jax_gc.graphconv_aggregate(
         *_jax(*batch), jnp.asarray(xs), interpret=True))
     out = sum(gc.graphconv_aggregate_ref(*_torch(*batch), p.to(torch.float32))
               for p in gc._split_bf16x3(torch.from_numpy(xs)))
+    assert np.isfinite(ref).all() and bool(torch.isfinite(out).all())
+    if extremes:
+        assert np.abs(ref).max() >= 3.4e38
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-4)
 
 
@@ -302,3 +322,70 @@ def test_contact_map_rejects_other_devices():
         contact.contact_map_fused(
             torch.zeros((1, 4, 3), device="meta"),
             torch.zeros(1, dtype=torch.int32, device="meta"))
+
+
+def test_batch_tokens_matches_jax():
+    seqs = ["MK", "MKVD", "", "ACDEFGHI"]
+    for got, ref in zip(one_hot.batch_tokens(seqs, pad_to=8),
+                        jax_one_hot.batch_tokens(seqs, pad_to=8)):
+        assert got.dtype == ref.dtype
+        np.testing.assert_array_equal(got, ref)
+    with pytest.raises(ValueError, match="exceeds pad_to"):
+        one_hot.batch_tokens(["MKVD"], pad_to=3)
+    with pytest.raises(ValueError, match="Invalid character"):
+        one_hot.batch_tokens(["MK1"], pad_to=8)
+
+
+ALIGNMENTS = [("ABCDE", "ABCDE"), ("AB-DE", "ABCDE"), ("ABCDE", "AB-DE"),
+              ("A-CDE", "ABC-E"), ("AAA--AAAAAA-AAA", "AA-AAAA-AAAAAAA")]
+
+
+@pytest.mark.parametrize("q_aln,t_aln", ALIGNMENTS)
+def test_build_projection_arrays_matches_jax(q_aln, t_aln):
+    got = cmap_align.build_projection_arrays(q_aln, t_aln, 16, 16)
+    ref = jax_cmap.build_projection_arrays(q_aln, t_aln, 16, 16)
+    for g, r in zip(got[:2], ref[:2]):
+        assert g.dtype == r.dtype
+        np.testing.assert_array_equal(g, r)
+    assert got[2] == ref[2]
+    with pytest.raises(ValueError, match="pad_q"):
+        cmap_align.build_projection_arrays(q_aln, t_aln, 2, 16)
+    with pytest.raises(ValueError, match="pad_t"):
+        cmap_align.build_projection_arrays(q_aln, t_aln, 16, 2)
+
+
+@pytest.mark.parametrize("gen", [0, 2])
+def test_batched_align_contact_maps_matches_jax(gen):
+    """P·A·Pᵀ by torch.bmm against the JAX einsum on the same padded batch
+    (exact), and against the host ``align_contact_map`` on each valid
+    block."""
+    pad_q = pad_t = 24
+    rng = np.random.default_rng(gen)
+    cases = ALIGNMENTS[1:] + [("AAAAAAAAAAAAAAAAAAAA", "AAAAAAAAAAAAAAAAAAAA")]
+    B = len(cases)
+    cmaps = np.zeros((B, pad_t, pad_t), np.float32)
+    q_to_t = np.zeros((B, pad_q), np.int32)
+    ins = np.zeros((B, pad_q), bool)
+    qlens = np.zeros(B, np.int32)
+    hosts = []
+    for b, (q_aln, t_aln) in enumerate(cases):
+        tlen = len(t_aln.replace("-", ""))
+        steps = rng.normal(size=(tlen, 3))
+        steps /= np.linalg.norm(steps, axis=1, keepdims=True)
+        xyz = np.cumsum(3.8 * steps, axis=0).astype(np.float32)
+        cmaps[b, :tlen, :tlen] = contact.calculate_contact_map(xyz)
+        q_to_t[b], ins[b], qlens[b] = cmap_align.build_projection_arrays(
+            q_aln, t_aln, pad_q, pad_t)
+        hosts.append(cmap_align.align_contact_map(
+            q_aln, t_aln, contact.calculate_contact_map(xyz, mode="sparse"),
+            generated_contacts=gen))
+    ref = np.asarray(jax_cmap.batched_align_contact_maps(
+        *_jax(cmaps, q_to_t, ins, qlens), generated_contacts=gen))
+    out = cmap_align.batched_align_contact_maps(
+        *_torch(cmaps, q_to_t, ins, qlens), generated_contacts=gen)
+    assert out.dtype == torch.float32 and out.shape == (B, pad_q, pad_q)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    for b, host in enumerate(hosts):
+        n = qlens[b]
+        np.testing.assert_array_equal(out.numpy()[b, :n, :n], host)
+        assert not out.numpy()[b, n:].any() and not out.numpy()[b, :, n:].any()
