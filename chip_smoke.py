@@ -22,8 +22,8 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
 4. The inference slice at full published width: three GCN modes (bp 3992,
    cc 320, mf 489 terms; LSTM-LM 512×2, embed 1024, GraphConv 512×3,
    FC 1024) with seeded random weights, 96 alignment-projected proteins of
-   length 40–500, through ``BatchedPredictor(device="cuda").predict_stream``
-   in bfloat16 and float32. Checks ids, finiteness, range, kernel launch
+   length 40–500, through ``BatchedPredictor(device="cuda",
+   spmm="fused").predict_stream`` in bfloat16 and float32. Checks ids, finiteness, range, kernel launch
    counts, and the float32 scores against the dense plain route on the card
    (atol 1e-4). Times a warm pass (proteins/s), the forward's stage shares,
    and each kernel at the main path's shapes: CUDA-event time (launch
@@ -48,7 +48,8 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    below 0.1. ``registry.load_models`` (sharing detected),
    ``parity.verify_weights(device="cuda")`` on 2 proteins per model (scores
    and scaled logits within 1e-4), then the 96 proteins of phase 4 through
-   ``predict_stream`` on the fused route (B1/B2 launches counted) and on the
+   ``predict_stream`` on the fused route (``spmm="fused"``, B1/B2 launches
+   counted) and on the
    dense route's shared-trunk step (atol 1e-4 between them), 64 sequences
    without a structure hit (length 40–1000) through ``predict_cnn`` (each
    row within 1e-5 of its unpadded single-protein run on the card), and a
@@ -62,14 +63,15 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    distinct structures with about 5 % substitutions and one or two short
    indels, 128 random queries (length 40–1000), two selenoproteins and two
    of length 1200 (``--max-length 1000``); the built-in search, NW
-   re-alignment, coordinates, projections, the fused GCN (B1/B2), the CNN
-   fallback, saved contact maps, matrices, ``results.tsv`` and GO
+   re-alignment, coordinates, projections, the GCN on the engine's default
+   ``spmm="auto"`` route (3-mode shared-trunk steps), the CNN fallback, saved contact maps, matrices, ``results.tsv`` and GO
    propagation over a mini OBO. Run A is ``cli.main`` in this process (B1/B2
    launches counted); run B is ``python -m metagenomic_deepfri_tpu_torch.cli``
    in a subprocess with ``--skip-matrix`` (top-k fetch and the dense re-run
    of overflows). Checks: both exit 0; every hit query aligned to its own
    structure and no random one, the filtered queries absent; 3 B1 and 1 B2
-   launches per mode per GCN batch; 8 hit and 8 no-hit matrix rows within
+   launches per mode of each GCN batch that ``resolve_spmm`` sends to the
+   fused kernels, none for a shared-trunk batch; 8 hit and 8 no-hit matrix rows within
    1e-4 of the ONNX graphs run on the host by the port's numpy executor
    (the GCN fed the saved aligned contact map); run B's ``results.tsv``
    against run A's: byte-identical for every (protein, network, mode) block
@@ -91,16 +93,27 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    hits aligned to their own structure, no random query aligned,
    selenoproteins skipped; scores ≥ 0.1 and sorted; every served protein's
    rows equal run A's ``results.tsv`` rows (scores within one unit of the
-   4th decimal, a term within that of 0.1 on one side only); 3 B1 and 1 B2
-   launches per mode per GCN batch the server ran; a ``score_topk=256``
-   server gives the dense server's responses on 4 fixed requests. Prints
+   4th decimal, a term within that of 0.1 on one side only); B1/B2
+   launches as in phase 7 for every GCN batch the server ran; a
+   ``score_topk=256`` server gives the dense server's responses on 4
+   fixed requests. Prints
    the cold latency, idle and loaded p50/p90/p99, proteins/s under load,
    requests coalesced per pass, the engine's share of the passes' time,
    the device's busy share of two load-sized passes under
    ``torch.profiler``, and peak device memory.
-9. Prints the kernel summary (launches on the main path, phases 4–8, max
-   |Δ|, ms, plain, device, bound and library ms), the card's name and power
-   limit, and last ``{"ok": true, "device": {...}}``.
+9. The ``benchmark`` verb through ``cli.main`` at bucket 512 with
+   ``--batches 2`` (its JSON line printed; the card named; 0 < MFU ≤ 1;
+   its launches counted), ``bench_utils``' multi-mode, roofline and CNN
+   measurements at bucket 512, a short spmm matrix (buckets 128 and 512,
+   2 forwards a pass) printed beside ``AUTO_SPMM_TABLE`` (a disagreement
+   is logged, not fatal), one device-only pass under
+   ``profiling.torch_trace`` whose Chrome trace must hold B1's kernel
+   events, and ``nw_score_many_device(device="cuda")`` equal to the host
+   NW on 200 seeded pairs.
+
+Last, the kernel summary (launches on the main path, phases 4–9, max |Δ|,
+ms, plain, device, bound and library ms), the card's name and power limit,
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -128,6 +141,8 @@ try:
     from metagenomic_deepfri_tpu_torch.batching.engine import (
         BatchedPredictor, ModelHandle, _expand_topk_host, _pad_batch,
         _pad_batch_coords)
+    from metagenomic_deepfri_tpu_torch.batching.spmm_table import \
+        resolve_spmm
     from metagenomic_deepfri_tpu_torch.models import deepfri
     from metagenomic_deepfri_tpu_torch.models.convert import (
         gcn_params_from_numpy, gcn_params_to_numpy)
@@ -203,6 +218,10 @@ P8_LOAD_CLIENTS = 8
 P8_LOAD_SIZES = (1, 32)
 P8_TOPK_REQUESTS = 4
 P8_TOPK_SIZE = 16
+# Phase 9: the benchmark verb and bench_utils.
+P9_BUCKET = 512
+P9_BATCHES = 2
+P9_MATRIX_BUCKETS = (128, 512)
 SOURCES = {
     "graphconv_aggregate": "metagenomic_deepfri_tpu_torch/csrc/graphconv.cu",
     "contact_degrees": "metagenomic_deepfri_tpu_torch/csrc/graphconv.cu",
@@ -758,6 +777,22 @@ def phase_finetune(dev, smi):
     return launches["contact_map"]
 
 
+def fused_modes(engine, bucket: int, modes) -> int:
+    """Modes of one GCN batch that run on the fused kernels (3 B1 and 1 B2
+    launches each): none for a shared-trunk batch, else those that
+    ``resolve_spmm`` sends to "fused" at this bucket."""
+    if engine._multi_key(modes):
+        return 0
+    return sum(resolve_spmm(engine.spmm, bucket,
+                            engine.gcn_models[m].config.compute_dtype,
+                            engine.device) == "fused" for m in modes)
+
+
+def gcn_launches(n_fused_modes: int) -> dict:
+    return {"graphconv_aggregate": 3 * n_fused_modes,
+            "contact_degrees": n_fused_modes, "contact_map": 0}
+
+
 def expect_launches(got: dict, want: dict, what: str) -> None:
     log(f"  {what}: launches {got}, expected {want}")
     if got != want:
@@ -913,7 +948,8 @@ def phase_models(dev, smi, items, weights):
     if len(results) != 2 * len(MODES) or not all(r.ok for r in results):
         raise AssertionError("verify_weights: a model exceeds tolerance")
 
-    fused = BatchedPredictor(gcn_h, cnn_h, device=dev, batch_cap=BATCH_CAP)
+    fused = BatchedPredictor(gcn_h, cnn_h, device=dev, batch_cap=BATCH_CAP,
+                             spmm="fused")
     dense = BatchedPredictor(gcn_h, cnn_h, device=dev, batch_cap=BATCH_CAP,
                              spmm="dense")
     topk = BatchedPredictor(gcn_h, device=dev, batch_cap=BATCH_CAP,
@@ -1217,12 +1253,14 @@ def phase_predict(dev, smi, weights: Path, root: Path, device_arg: str):
             "--obo-path", str(obo), "--max-length", str(P7_MAX_LENGTH),
             "-t", str(threads)]
 
-    batches = []
+    batches, n_fused = [], []
     real_run_batch = BatchedPredictor._run_batch
 
     def spy(self, bucket, chunk, batch, modes, net="gcn_coords",
             overflow_cb=None):
         batches.append((net, bucket, batch, len(chunk)))
+        if net == "gcn_coords":
+            n_fused.append(fused_modes(self, bucket, modes))
         return real_run_batch(self, bucket, chunk, batch, modes, net,
                               overflow_cb)
 
@@ -1299,11 +1337,11 @@ def phase_predict(dev, smi, weights: Path, root: Path, device_arg: str):
     log(f"  alignment summary: {len(hits)}/{len(hits)} hits on their source "
         f"structure, 0/{len(no_hits)} no-hits aligned")
 
-    # Check 3: 3 B1 and 1 B2 launches per mode per GCN batch.
-    expect_launches(launches, {
-        "graphconv_aggregate": 3 * len(MODES) * len(gcn_batches),
-        "contact_degrees": len(MODES) * len(gcn_batches),
-        "contact_map": 0}, f"run A, {len(gcn_batches)} GCN batches")
+    # Check 3: 3 B1 and 1 B2 launches per mode of each GCN batch on the
+    # fused route (none on the shared-trunk step).
+    expect_launches(launches, gcn_launches(sum(n_fused)),
+                    f"run A, {len(gcn_batches)} GCN batches, fused modes "
+                    f"{n_fused}")
 
     # Check 4: matrix rows against the ONNX graphs on the host.
     t0 = time.perf_counter()
@@ -1423,14 +1461,14 @@ def phase_serve(dev, smi, weights: Path, root: Path, inputs, device_arg: str):
     kw = dict(databases=[structures], processing_modes=list(MODES),
               max_eval=1e-3, min_ident=0.5, min_coverage=0.9, top_k=5,
               threads=threads, device=device_arg)  # run A's search settings
-    gcn_batch_modes = []  # modes run in each GCN batch
+    gcn_batch_modes = []  # modes on the fused kernels in each GCN batch
     real_run_batch = BatchedPredictor._run_batch
     secs = {"engine": 0.0, "passes": 0.0}  # host clock, summed
 
     def spy(self, bucket, chunk, batch, modes, net="gcn_coords",
             overflow_cb=None):
         if net == "gcn_coords":
-            gcn_batch_modes.append(len(modes))
+            gcn_batch_modes.append(fused_modes(self, bucket, modes))
         t = time.perf_counter()
         out = real_run_batch(self, bucket, chunk, batch, modes, net,
                              overflow_cb)  # ends with the fetch to the host
@@ -1539,11 +1577,9 @@ def phase_serve(dev, smi, weights: Path, root: Path, inputs, device_arg: str):
         raise AssertionError("the server thread did not stop")
 
     gcn_modes = sum(gcn_batch_modes)
-    expect_launches(launches, {
-        "graphconv_aggregate": 3 * gcn_modes, "contact_degrees": gcn_modes,
-        "contact_map": 0},
-        f"phase 8, {len(gcn_batch_modes)} GCN batches ({gcn_modes} "
-        "batch-modes)")
+    expect_launches(launches, gcn_launches(gcn_modes),
+                    f"phase 8, {len(gcn_batch_modes)} GCN batches "
+                    f"({gcn_modes} batch-modes on the fused kernels)")
     load_ms = [ms for _, ms in load]
     n_load = sum(len(r) for r in load_reqs)
     stats = {
@@ -1565,6 +1601,125 @@ def phase_serve(dev, smi, weights: Path, root: Path, inputs, device_arg: str):
         f"{len(fixed)} requests: max|Δ|={topk_worst:.3g} (overflows re-run "
         f"densely: {topk._dense_engine is not None})")
     log(f"  serving {json.dumps(stats)} on {smi}")
+    return launches
+
+
+def nw_pairs(seed: int):
+    """(query, 25 targets, gap open, gap extend) for 8 seeded queries: 200
+    pairs of lengths 1–300, every fifth target a near-copy."""
+    rng = np.random.default_rng(seed)
+    aas = list(synthetic.AMINO_ACIDS)
+    gaps = [(10, 1), (11, 1), (5, 2)]
+    for i in range(8):
+        q = "".join(rng.choice(aas, size=int(rng.integers(1, 301))))
+        targets = []
+        for j in range(25):
+            if j % 5 == 0:
+                t = list(q)
+                for pos in rng.choice(len(q), size=len(q) // 5,
+                                      replace=False):
+                    t[pos] = rng.choice(aas)
+                targets.append("".join(t))
+            else:
+                targets.append("".join(rng.choice(
+                    aas, size=int(rng.integers(1, 301)))))
+        yield (q, targets, *gaps[i % 3])
+
+
+def trace_kernel_names(trace_dir: Path) -> set:
+    """Names of the CUDA kernel events in the Chrome traces of a dir."""
+    names = set()
+    for path in trace_dir.glob("*.json"):
+        for e in json.loads(path.read_text())["traceEvents"]:
+            if e.get("cat") == "kernel":
+                names.add(e.get("name", ""))
+    return names
+
+
+def phase_bench(dev, smi, kind: str, root: Path, device_arg: str):
+    """Phase 9: the ``benchmark`` verb through ``cli.main`` (its kernel
+    launches returned), the multi-mode, roofline, CNN and spmm-matrix
+    measurements of ``bench_utils``, one pass under ``torch_trace``, and
+    the device NW against the host NW."""
+    import contextlib
+    import io
+
+    from metagenomic_deepfri_tpu_torch import bench_utils, cli, profiling
+    from metagenomic_deepfri_tpu_torch.align.matrices import ScoringMatrix
+    from metagenomic_deepfri_tpu_torch.ops.nw import (nw_score_many,
+                                                      nw_score_many_device)
+
+    buf = io.StringIO()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["benchmark", "--bucket", str(P9_BUCKET),
+                           "--batches", str(P9_BATCHES), "--device",
+                           device_arg])
+    finally:
+        logging.getLogger().handlers.clear()
+    launches = launch_counts()
+    secs = time.perf_counter() - t0
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"benchmark verb: exit {rc}, {len(lines)} JSON "
+                             "lines")
+    line = json.loads(lines[0])
+    log(f"phase 9: benchmark verb ({secs:.2f} s, launches {launches}) on "
+        f"{smi}:")
+    log(lines[0])
+    mfu = line["detail"]["mfu"]
+    if line["detail"]["device"] != kind or not (
+            line["value"] > 0 and mfu is not None and 0 < mfu <= 1):
+        raise AssertionError("benchmark verb: device or MFU out of range")
+
+    for name, fn in (
+            ("multimode", lambda: bench_utils.run_multimode_benchmark(
+                bucket=P9_BUCKET, batches=1, reps=2, device=dev)),
+            ("roofline", lambda: bench_utils.run_roofline_benchmark(
+                bucket=P9_BUCKET, reps=4, device=dev)),
+            ("cnn", lambda: bench_utils.run_cnn_benchmark(
+                bucket=P9_BUCKET, batches=2, device=dev))):
+        t0 = time.perf_counter()
+        out = fn()
+        log(f"  {name} ({time.perf_counter() - t0:.2f} s) on {smi}: {out}")
+        if not json.loads(out)["value"] > 0:
+            raise AssertionError(f"{name}: no positive rate")
+
+    t0 = time.perf_counter()
+    matrix = json.loads(bench_utils.run_spmm_matrix(
+        buckets=P9_MATRIX_BUCKETS, reps=2, device=dev))
+    log(f"  spmm matrix ({time.perf_counter() - t0:.2f} s, reps 2) on {smi}: "
+        f"{json.dumps(matrix['detail'])}")
+    if matrix["detail"]["errors"]:
+        raise AssertionError("spmm matrix: a cell failed")
+    for key, route in matrix["detail"]["auto_table"].items():
+        bucket, dtype = key.split(",")
+        table = resolve_spmm("auto", int(bucket), dtype, torch.device("cuda"))
+        log(f"    {key}: this run {route}, AUTO_SPMM_TABLE {table}"
+            f"{'' if route == table else ' (differs; not fatal)'}")
+
+    trace_dir = root / "trace"
+    with profiling.torch_trace(trace_dir):
+        bench_utils.device_only_gcn_pps(bucket=128, reps=1, batch_cap=32,
+                                        spmm="fused", device=dev)
+    names = trace_kernel_names(trace_dir)
+    log(f"  torch_trace: {len(names)} CUDA kernel names in "
+        f"{[p.name for p in trace_dir.glob('*.json')]}")
+    if not any(SYMBOLS["graphconv_aggregate"] in n for n in names):
+        raise AssertionError("torch_trace: no CUDA kernel events of B1")
+
+    sm = ScoringMatrix.from_name("BLOSUM62")
+    t0 = time.perf_counter()
+    n_pairs = 0
+    for q, targets, go, ge in nw_pairs(SEED + 90):
+        got = nw_score_many_device(q, targets, sm, go, ge, device=dev)
+        if not np.array_equal(got, nw_score_many(q, targets, sm, go, ge)):
+            raise AssertionError("device NW differs from the host NW")
+        n_pairs += len(targets)
+    log(f"  device NW = host NW on {n_pairs} pairs "
+        f"({time.perf_counter() - t0:.2f} s)")
     return launches
 
 
@@ -1598,7 +1753,8 @@ def main() -> int:
     # Phase 4: the slice at full width.
     items = synthetic.aligned_items(N_PROTEINS, seed=SEED)
     handles = {dt: make_handles(dt, dev) for dt in ("bfloat16", "float32")}
-    engines = {dt: BatchedPredictor(h, device=dev, batch_cap=BATCH_CAP)
+    engines = {dt: BatchedPredictor(h, device=dev, batch_cap=BATCH_CAP,
+                                    spmm="fused")
                for dt, h in handles.items()}
     n_batches = expected_batches(items)
     log(f"phase 4: {N_PROTEINS} proteins, {len(MODES)} modes, "
@@ -1662,7 +1818,9 @@ def main() -> int:
         # Phase 8: the resident server over its socket (B1/B2 again).
         p8_launches = phase_serve(dev, smi, weights, Path(tmp), p7_inputs,
                                   "cuda")
-        for counts in (p7_launches, p8_launches):
+        # Phase 9: the benchmark verb (its launches), bench_utils, NW.
+        p9_launches = phase_bench(dev, smi, kind, Path(tmp), "cuda")
+        for counts in (p7_launches, p8_launches, p9_launches):
             for name, n in counts.items():
                 launches[name] += n
 

@@ -7,7 +7,8 @@ batches, and every requested mode runs on each batch while its inputs are on
 the device. Scores come back as ``{mode: {id: (n_labels,) float32 ndarray}}``.
 
 Ported: the fused-coordinates GCN path on the B1/B2 kernels, the dense
-route with the shared-trunk multi-mode step, the CNN path (one-shot
+route with the shared-trunk multi-mode step, the measured ``spmm="auto"``
+choice between them (:mod:`.spmm_table`), the CNN path (one-shot
 :meth:`BatchedPredictor.predict_cnn` and ``predict_stream(net="cnn")``), the
 top-k score fetch with its overflow report, and the float32 precision rule.
 
@@ -33,6 +34,8 @@ from metagenomic_deepfri_tpu_torch.batching.buckets import (DEFAULT_BUCKETS,
                                                             bucket_plan,
                                                             cnn_batch_size,
                                                             gcn_batch_size)
+from metagenomic_deepfri_tpu_torch.batching.spmm_table import (SPMM_POLICIES,
+                                                               resolve_spmm)
 from metagenomic_deepfri_tpu_torch.models.convert import gcn_params_from_numpy
 from metagenomic_deepfri_tpu_torch.models.deepfri import (
     GCNConfig, cnn_forward, gcn_forward, gcn_forward_fused,
@@ -44,7 +47,6 @@ from metagenomic_deepfri_tpu_torch.precision import use_highest_f32_precision
 
 logger = logging.getLogger(__name__)
 
-_SPMM = ("fused", "dense")
 _NETS = ("gcn_coords", "cnn")
 
 
@@ -194,12 +196,18 @@ class BatchedPredictor:
         batch_cap: upper bound on the per-bucket batch size.
         contact_threshold: contact distance threshold in Å.
         generated_contacts: half-width of the insertion band.
-        spmm: "fused" runs the GraphConv kernels of :mod:`..ops.graphconv`
-            per mode (their plain twins on a CPU device); "dense" builds the
-            (B, L, L) adjacency with :func:`aligned_contacts_from_coords`
-            and runs the dense forward — one shared-trunk multi-mode step
-            per batch when two or more requested modes share the LSTM-LM,
-            one forward per mode otherwise.
+        spmm: the GraphConv aggregation route. "auto" (the default, as in
+            the JAX engine) runs a batch of two or more requested modes that
+            share the LSTM-LM as one dense shared-trunk step, and every
+            other batch per mode on the route that
+            :func:`.spmm_table.resolve_spmm` measured fastest for its bucket
+            and dtype ("dense" off a CUDA device). "fused" runs the
+            GraphConv kernels of :mod:`..ops.graphconv` per mode (their
+            plain twins on a CPU device) and never the shared-trunk step.
+            "dense" builds the (B, L, L) adjacency with
+            :func:`aligned_contacts_from_coords` and runs the dense forward:
+            the shared-trunk step where the modes share the LM, one forward
+            per mode otherwise.
         score_topk: if set, heads with more than 2·K labels return only
             their top-K (value, index) pairs from the device; rows come
             back dense, exact at the kept positions and 0.0 elsewhere. That
@@ -223,11 +231,12 @@ class BatchedPredictor:
                  batch_cap: Optional[int] = None,
                  contact_threshold: float = 6.0,
                  generated_contacts: int = 2,
-                 spmm: str = "fused",
+                 spmm: str = "auto",
                  score_topk: Optional[int] = None,
                  score_threshold: float = 0.1):
-        if spmm not in _SPMM:
-            raise ValueError(f"spmm must be one of {_SPMM}, got {spmm!r}")
+        if spmm not in SPMM_POLICIES:
+            raise ValueError(f"spmm must be one of {SPMM_POLICIES}, got "
+                             f"{spmm!r}")
         if score_topk is not None and int(score_topk) < 1:
             raise ValueError(f"score_topk must be >= 1 (or None to disable), "
                              f"got {score_topk!r}")
@@ -300,14 +309,21 @@ class BatchedPredictor:
     def _multi_key(self, modes) -> Optional[tuple]:
         """The modes of a shared-trunk multi-mode step, or None.
 
-        Needs the dense route, ≥ 2 requested modes, detected sharing, and
-        every requested mode among the shared set.
+        Needs ≥ 2 requested modes, detected sharing, every requested mode
+        among the shared set, and a route other than a forced "fused".
         """
-        if self.spmm != "dense" or self._gcn_shared is None or len(modes) < 2:
+        if self.spmm == "fused" or self._gcn_shared is None or len(modes) < 2:
             return None
         if not all(m in self._gcn_shared[1] for m in modes):
             return None
         return tuple(modes)
+
+    def _mode_spmm(self, mode: str, bucket: int) -> str:
+        """The route ("fused" | "dense") of one mode's forward at a bucket."""
+        return resolve_spmm(
+            self.spmm, bucket,
+            getattr(self.gcn_models[mode].config, "compute_dtype", "float32"),
+            self.device)
 
     def _gcn_scores(self, bucket: int, chunk: list, batch: int,
                     modes: list) -> dict:
@@ -315,21 +331,34 @@ class BatchedPredictor:
         tokens, lengths, coords, ins = (
             torch.from_numpy(a).to(self.device)
             for a in _pad_batch_coords(chunk, bucket, batch))
+        return self._gcn_forward(modes, tokens, coords, ins, lengths)
+
+    def _gcn_forward(self, modes: list, tokens: torch.Tensor,
+                     coords: torch.Tensor, ins: torch.Tensor,
+                     lengths: torch.Tensor) -> dict:
+        """{mode: scores} of a padded batch already on the device: one
+        shared-trunk step, or each mode on its route for this bucket."""
         thr, gen = self.contact_threshold, self.generated_contacts
-        if self.spmm == "fused":
-            return {m: gcn_forward_fused(self._gcn_params[m],
-                                         self.gcn_models[m].config, tokens,
-                                         coords, ins, lengths, thr, gen)
-                    for m in modes}
-        adj = aligned_contacts_from_coords(coords, ins, lengths, thr, gen)
         key = self._multi_key(modes)
         if key:
             shared, per_mode, configs = self._gcn_shared
+            adj = aligned_contacts_from_coords(coords, ins, lengths, thr, gen)
             return gcn_forward_multimode(
                 shared, {m: per_mode[m] for m in key},
                 {m: configs[m] for m in key}, tokens, adj, lengths)
-        return {m: gcn_forward(self._gcn_params[m], self.gcn_models[m].config,
-                               tokens, adj, lengths) for m in modes}
+        out, adj = {}, None
+        for m in modes:
+            cfg = self.gcn_models[m].config
+            if self._mode_spmm(m, tokens.shape[1]) == "fused":
+                out[m] = gcn_forward_fused(self._gcn_params[m], cfg, tokens,
+                                           coords, ins, lengths, thr, gen)
+                continue
+            if adj is None:
+                adj = aligned_contacts_from_coords(coords, ins, lengths, thr,
+                                                   gen)
+            out[m] = gcn_forward(self._gcn_params[m], cfg, tokens, adj,
+                                 lengths)
+        return out
 
     def _cnn_scores(self, bucket: int, chunk: list, batch: int,
                     modes: list) -> dict:

@@ -6,11 +6,11 @@
 The verbs of the JAX package's command line (``metagenomic_deepfri_tpu/
 cli.py``) with its flags, names and defaults: ``search-databases``,
 ``predict-function``, ``make-cmaps``, ``generate-config``, ``get-models``,
-``get-binaries``, ``finetune``, ``merge-results``, ``verify-weights`` and
-``serve``, plus the group's ``--debug`` and ``--version``. The verbs that
-run a model (``predict-function``, ``finetune``, ``verify-weights``,
-``serve``) take ``--device``, which is required: the port never picks a
-device by itself. ``benchmark`` is not ported.
+``get-binaries``, ``finetune``, ``merge-results``, ``verify-weights``,
+``serve`` and ``benchmark``, plus the group's ``--debug`` and
+``--version``. The verbs that run a model (``predict-function``,
+``finetune``, ``verify-weights``, ``serve``, ``benchmark``) take
+``--device``, which is required: the port never picks a device by itself.
 
 The command line uses ``argparse`` only. A usage error prints the verb's
 full help and exits 2 (the JAX package's ``patch_usage_error``); a failed
@@ -340,6 +340,16 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_benchmark(args) -> int:
+    """Measure GCN inference throughput (proteins/sec) on this device."""
+    from metagenomic_deepfri_tpu_torch.bench_utils import run_gcn_benchmark
+
+    print(run_gcn_benchmark(bucket=args.bucket, batches=args.batches,
+                            n_labels=args.n_labels, device=args.device),
+          flush=True)
+    return 0
+
+
 def _device_option(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", required=True,
                    help="Where the models run: cuda, cuda:1, cpu.")
@@ -539,6 +549,17 @@ def _parser() -> argparse.ArgumentParser:
                    help="go-basic.obo file: responses gain per-protein "
                         "propagated_scores (true-path GO propagation, the "
                         "serving analogue of results_propagated.tsv).")
+
+    p = verb("benchmark", cmd_benchmark,
+             "Measure GCN inference throughput (proteins/sec) on this "
+             "device.")
+    _device_option(p)
+    p.add_argument("--bucket", default=512, type=int,
+                   help="Length bucket to benchmark (default: %(default)s).")
+    p.add_argument("--batches", default=8, type=int,
+                   help="Number of timed batches (default: %(default)s).")
+    p.add_argument("--n-labels", default=512, type=int,
+                   help="Head width (default: %(default)s).")
     return parser
 
 

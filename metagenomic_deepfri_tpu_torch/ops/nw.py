@@ -1,13 +1,15 @@
-"""Needleman–Wunsch alignment on the host: ctypes binding to the native
-engine, and a numpy oracle.
+"""Needleman–Wunsch alignment: ctypes binding to the native host engine, a
+numpy oracle, and a batched score-only wavefront on a torch device.
 
-A copy of the host part of ``metagenomic_deepfri_tpu/ops/nw.py`` (``:1-229``):
-:func:`nw_align`, :func:`nw_score_many`, :func:`alignment_stats` and the
-numpy Gotoh ``_nw_align_python``, used when ``force_python=True`` (the parity
-oracle of the tests). The native library is the JAX package's ``nw.cpp``,
-built by :mod:`..native.build`; unlike the JAX package, a failed build raises
+Counterpart of ``metagenomic_deepfri_tpu/ops/nw.py``: :func:`nw_align`,
+:func:`nw_score_many`, :func:`alignment_stats` and the numpy Gotoh
+``_nw_align_python``, used when ``force_python=True`` (the parity oracle of
+the tests). The native library is the JAX package's ``nw.cpp``, built by
+:mod:`..native.build`; unlike the JAX package, a failed build raises
 :class:`..native.build.NativeBuildError` instead of falling back to numpy.
-The JAX-only device wavefront (``nw_score_many_device``) is not ported.
+:func:`nw_scores_device` / :func:`nw_score_many_device` port the JAX
+package's anti-diagonal wavefront (a ``lax.scan``, so plain torch ops here);
+the host engine stays the pipeline's NW, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import ctypes
 from typing import TYPE_CHECKING, List, Tuple
 
 import numpy as np
+import torch
 
 from metagenomic_deepfri_tpu_torch.native import build as native
 
@@ -188,3 +191,118 @@ def alignment_stats(query: str, target: str,
     return (matches / length,
             q_cons / max(len(query), 1),
             t_cons / max(len(target), 1))
+
+
+# ---------------------------------------------------------------------------
+# Device score-mode NW: batched anti-diagonal wavefront.
+# ---------------------------------------------------------------------------
+
+def _shift_right(x: torch.Tensor, fill: int) -> torch.Tensor:
+    """Shift (B, W) one step along the last axis, filling column 0."""
+    return torch.cat([torch.full((x.shape[0], 1), fill, dtype=x.dtype,
+                                 device=x.device), x[:, :-1]], dim=1)
+
+
+def nw_scores_device(query_tokens, target_tokens, target_lengths, matrix,
+                     gap_open: int = 10, gap_extend: int = 1, *,
+                     device) -> torch.Tensor:
+    """Batched global affine-gap NW scores on ``device`` (one query vs B
+    targets).
+
+    The DP runs over anti-diagonals: every cell on a diagonal depends only
+    on the two previous diagonals, so each step is one vectorised (B, m+1)
+    update with no dependency inside it. The substitution scores are
+    skewed into diagonal layout before the loop, so its body does no
+    gathers. Exact int32 arithmetic: the scores equal the host engine's.
+
+    Args:
+        query_tokens: (m,) encoded query, m ≥ 1.
+        target_tokens: (B, N) encoded targets, padded arbitrarily.
+        target_lengths: (B,) true lengths (≥ 1).
+        matrix: (A, A) substitution matrix.
+
+    Returns:
+        (B,) int32 tensor of global alignment scores on ``device``.
+    """
+    def as_int32(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+    q, t = as_int32(query_tokens), as_int32(target_tokens)
+    lengths, matrix = as_int32(target_lengths), as_int32(matrix)
+    neg, go, ge = int(_NEG_INF), int(gap_open), int(gap_extend)
+    m = q.shape[0]
+    B, N = t.shape
+    K = m + N
+    dev = t.device
+
+    # S_diag[k-1, b, i] = matrix[q[i-1], t[b, k-i-1]] for cell (i, j=k-i).
+    prof = matrix[q.long()]                              # (m, A)
+    S = prof[:, t.long()].permute(1, 0, 2)               # (B, m, N)
+    k_idx = torch.arange(1, K + 1, device=dev)[:, None]  # (K, 1)
+    i_idx = torch.arange(m + 1, device=dev)[None, :]     # (1, m+1)
+    j_idx = k_idx - i_idx
+    interior = (i_idx >= 1) & (j_idx >= 1) & (i_idx <= m) & (j_idx <= N)
+    gi = (i_idx - 1).clamp(0, m - 1)
+    gj = (j_idx - 1).clamp(0, N - 1)
+    S_diag = torch.where(interior[None], S[:, gi, gj],
+                         torch.zeros((), dtype=torch.int32, device=dev))
+    S_diag = S_diag.permute(1, 0, 2).contiguous()        # (K, B, m+1)
+    # Per-diagonal masks: off the grid, first row (i=0), first column (j=0).
+    on_grid = (j_idx >= 0) & (i_idx <= k_idx) & (j_idx <= N)  # (K, m+1)
+    row0 = (i_idx == 0).expand(K, m + 1)
+    col0 = j_idx == 0
+    bval = (-go - (k_idx - 1) * ge).to(torch.int32)      # (K, 1)
+    neg_t = torch.full((), neg, dtype=torch.int32, device=dev)
+
+    H1 = torch.full((B, m + 1), neg, dtype=torch.int32, device=dev)
+    H1[:, 0] = 0                                         # diagonal 0
+    H2 = torch.full_like(H1, neg)
+    E1 = torch.full_like(H1, neg)
+    F1 = torch.full_like(H1, neg)
+    ys = torch.empty((K, B), dtype=torch.int32, device=dev)
+    for k in range(K):                                   # diagonal k + 1
+        # E: gap consuming target — cell (i, j-1) is diagonal k, index i.
+        E = torch.maximum(H1 - go, E1 - ge)
+        # F: gap consuming query — cell (i-1, j) is diagonal k, index i-1.
+        F = torch.maximum(_shift_right(H1, neg) - go,
+                          _shift_right(F1, neg) - ge)
+        # Match: cell (i-1, j-1) is diagonal k-1, index i-1.
+        H = torch.maximum(_shift_right(H2, neg) + S_diag[k],
+                          torch.maximum(E, F))
+        b = bval[k]
+        H = torch.where(row0[k] | col0[k], b, H)
+        E = torch.where(row0[k], b, E)
+        F = torch.where(col0[k], b, F)
+        H = torch.where(on_grid[k], H, neg_t)
+        E = torch.where(on_grid[k], E, neg_t)
+        F = torch.where(on_grid[k], F, neg_t)
+        ys[k] = H[:, m]
+        H2, H1, E1, F1 = H1, H, E, F
+    # score[b] = H[m, n_b], on diagonal m + n_b (row m + n_b - 1 of ys).
+    rows = (m + lengths - 1).long()
+    return ys.gather(0, rows[None, :])[0]
+
+
+def nw_score_many_device(query: str, targets: List[str],
+                         scoring: ScoringMatrix, gap_open: int = 10,
+                         gap_extend: int = 1, *, device) -> np.ndarray:
+    """Device wavefront counterpart of :func:`nw_score_many`.
+
+    Pads the targets to their longest length rounded up to 32 and runs one
+    batched wavefront on ``device``. Useful when ranking a query against
+    many candidates with the GPU otherwise idle; the host engine remains
+    the pipeline's NW, where the device is busy with inference.
+    """
+    if not targets:
+        return np.zeros(0, np.int32)
+    q = scoring.encode(query)
+    encoded = [scoring.encode(t) for t in targets]
+    N = -(-max(len(e) for e in encoded) // 32) * 32
+    batch = np.zeros((len(encoded), N), np.int32)
+    lengths = np.zeros(len(encoded), np.int32)
+    for i, e in enumerate(encoded):
+        batch[i, : len(e)] = e
+        lengths[i] = len(e)
+    scores = nw_scores_device(q, batch, lengths, scoring.matrix, gap_open,
+                              gap_extend, device=device)
+    return scores.cpu().numpy().astype(np.int32)

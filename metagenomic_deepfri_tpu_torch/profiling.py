@@ -1,26 +1,36 @@
-"""Stage timers and throughput counters.
+"""Stage timers, throughput counters, and the profiler trace hook.
 
-A copy of ``metagenomic_deepfri_tpu/profiling.py`` (``:31-100``):
+Counterpart of ``metagenomic_deepfri_tpu/profiling.py``:
 
 - :func:`stage` — context manager timing a named pipeline stage on the
   host clock, with optional item counters (→ proteins/s) and edge counters
   (→ edges/s); results accumulate in a process-wide registry.
 - :func:`report` / :func:`log_report` — structured summary of all stages.
+- :func:`torch_trace` — wraps ``torch.profiler.profile`` so a Chrome trace
+  (host operators, and CUDA kernels when a GPU is present) is written when
+  ``MDEEPFRI_TPU_TRACE_DIR`` is set (or a path is passed explicitly); a
+  no-op otherwise. The counterpart of ``jax_trace``.
 
 The host clock is honest for the inference stages: the engine brings every
-batch's scores to the host inside the stage. The JAX package's device-trace
-hook (``jax_trace``) has no counterpart here yet.
+batch's scores to the host inside the stage.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import time
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Dict, Optional
 
+import torch
+from torch.profiler import ProfilerActivity, profile
+
 logger = logging.getLogger(__name__)
+
+_TRACE_ENV = "MDEEPFRI_TPU_TRACE_DIR"
 
 
 @dataclass
@@ -94,3 +104,27 @@ def log_report() -> None:
                     f"  {row['items_per_sec']} items/s"
                     if row["items_per_sec"] else "")
 
+
+@contextlib.contextmanager
+def torch_trace(trace_dir: Optional[str] = None):
+    """Capture a ``torch.profiler`` trace if a directory is configured.
+
+    Directory precedence: explicit argument, then ``MDEEPFRI_TPU_TRACE_DIR``.
+    Records CPU activity, and CUDA activity when a CUDA device is present,
+    and writes ``torch_trace_<pid>_<ns>.json`` (Chrome trace format; open it
+    in Perfetto or ``chrome://tracing``) into the directory on exit.
+    """
+    trace_dir = trace_dir or os.environ.get(_TRACE_ENV)
+    if not trace_dir:
+        yield
+        return
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    out = Path(trace_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"torch_trace_{os.getpid()}_{time.time_ns()}.json"
+    logger.info("Capturing torch profiler trace to %s", path)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(str(path))

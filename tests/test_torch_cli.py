@@ -26,7 +26,7 @@ from test_torch_pipeline import run_pipeline, structure_fixture, \
 REPO = Path(__file__).resolve().parent.parent
 VERBS = ["search-databases", "predict-function", "make-cmaps",
          "generate-config", "get-models", "get-binaries", "finetune",
-         "merge-results", "verify-weights", "serve"]
+         "merge-results", "verify-weights", "serve", "benchmark"]
 
 
 @pytest.fixture(autouse=True)
@@ -82,7 +82,8 @@ def test_verb_help(verb, capsys):
                      "--top-k", "--skip-pdb", "--shard", "--db-path"):
             assert flag in out
     assert ("--device" in out) == (
-        verb in ("predict-function", "finetune", "verify-weights", "serve"))
+        verb in ("predict-function", "finetune", "verify-weights", "serve",
+                 "benchmark"))
 
 
 def test_usage_error_prints_full_help_and_exits_2(tmp_path, capsys):
@@ -228,10 +229,14 @@ def test_module_entry_point(tmp_path):
     assert "--threshold" in proc.stderr and "--output_dir" in proc.stderr
 
 
-def _serve_actions():
+def _verb_actions(verb):
     sub = next(a for a in cli._parser()._actions
                if isinstance(a, argparse._SubParsersAction))
-    return sub.choices["serve"]._option_string_actions
+    return sub.choices[verb]._option_string_actions
+
+
+def _serve_actions():
+    return _verb_actions("serve")
 
 
 def test_serve_parser_matches_jax_verb(tmp_path, capsys):
@@ -300,3 +305,35 @@ def test_serve_verb_round_trip(weights_dir, tmp_path):
     assert out["skipped"] == {"q_seleno": "selenocysteine"}
     assert out["results"]["q_hit_a"]["target"] == "af_0"
     assert out["results"]["q_nohit"]["network"] == "cnn"
+
+
+def test_benchmark_verb(monkeypatch, capsys):
+    """``benchmark`` has the JAX verb's options and defaults plus a required
+    ``--device``; a tiny run on the CPU prints one JSON line (the engine's
+    batch rule patched to 2 proteins a batch)."""
+    from metagenomic_deepfri_tpu_torch import bench_utils
+
+    jax_opts = {o: p for p in jax_main.commands["benchmark"].params
+                for o in p.opts}
+    ours = _verb_actions("benchmark")
+    assert set(ours) - set(jax_opts) == {"--device", "-h", "--help"}
+    assert set(jax_opts) - set(ours) == set()
+    for opt in ("--bucket", "--batches", "--n-labels"):
+        assert ours[opt].default == jax_opts[opt].default, opt
+    assert ours["--device"].required
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["benchmark", "--bucket", "32"])
+    assert exc.value.code == 2
+    assert "required: --device" in capsys.readouterr().err
+
+    monkeypatch.setattr(bench_utils, "gcn_batch_size", lambda bucket: 2)
+    assert cli.main(["benchmark", "--bucket", "32", "--batches", "2",
+                     "--n-labels", "8", "--device", "cpu"]) == 0
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("{")]
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert line["metric"] == "gcn_proteins_per_sec_per_chip"
+    assert line["value"] > 0 and line["detail"]["n_proteins"] == 4
+    assert line["detail"]["n_labels"] == 8
+    assert line["detail"]["device"] == "cpu"

@@ -292,7 +292,8 @@ def test_multimode_on_card_matches_per_mode(cuda):
         torch.testing.assert_close(out[m], ref, rtol=0, atol=1e-5)
     handles = {m: ModelHandle("gcn", m, cfgs[m], trees[m]) for m in labels}
     items = aligned_items(20, seed=4, min_len=40, max_len=300)
-    fused = BatchedPredictor(handles, device=cuda, batch_cap=8)
+    fused = BatchedPredictor(handles, device=cuda, batch_cap=8,
+                             spmm="fused")
     dense = BatchedPredictor(handles, device=cuda, batch_cap=8, spmm="dense")
     assert dense._multi_key(list(labels))
     before = gc.graphconv_aggregate.launches
@@ -303,6 +304,24 @@ def test_multimode_on_card_matches_per_mode(cuda):
         for q in want[m]:
             np.testing.assert_allclose(got[m][q], want[m][q], rtol=0,
                                        atol=1e-4)
+
+
+def _fused_modes_per_batch(monkeypatch) -> list:
+    """Spy on every engine's GCN batches: for each, the number of modes the
+    spmm policy sends to the fused kernels (one B2 and three B1 launches
+    each; none for a shared-trunk batch)."""
+    seen = []
+    real = BatchedPredictor._run_batch
+
+    def spy(self, bucket, chunk, batch, modes, net="gcn_coords",
+            overflow_cb=None):
+        if net == "gcn_coords":
+            seen.append(0 if self._multi_key(modes) else sum(
+                self._mode_spmm(m, bucket) == "fused" for m in modes))
+        return real(self, bucket, chunk, batch, modes, net, overflow_cb)
+
+    monkeypatch.setattr(BatchedPredictor, "_run_batch", spy)
+    return seen
 
 
 def test_native_search_with_cuda_initialised(cuda):
@@ -340,11 +359,12 @@ def test_native_search_with_cuda_initialised(cuda):
     assert torch.cuda.is_initialized()
 
 
-def test_pipeline_on_card_matches_cpu(cuda, tmp_path):
+def test_pipeline_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     """``predict_protein_function(device="cuda")`` on a small structure
     directory: the same alignment summary and results.tsv rows as the same
     pipeline on the CPU (scores within one unit of the 4th decimal), with
-    B1/B2 launched for every GCN batch."""
+    B2 launched once for every mode of a GCN batch that the ``"auto"``
+    table sends to the fused kernels."""
     from metagenomic_deepfri_tpu_torch import pipeline, synthetic
 
     db = synthetic.write_structure_db(tmp_path / "structures", 24, seed=3,
@@ -371,7 +391,9 @@ def test_pipeline_on_card_matches_cpu(cuda, tmp_path):
     weights = synthetic.write_model_set(tmp_path / "weights", gcn, cnn)
 
     outs = {}
+    fused_modes = _fused_modes_per_batch(monkeypatch)
     for dev in ("cpu", str(cuda)):
+        fused_modes.clear()
         out = tmp_path / f"on_{dev}"
         qf = pipeline.load_query_file(tmp_path / "q.faa")
         dbs = pipeline.hierarchical_database_search(
@@ -383,7 +405,8 @@ def test_pipeline_on_card_matches_cpu(cuda, tmp_path):
             weights, out, deepfri_processing_modes=["mf", "cc"], threads=4,
             device=dev)
         if torch.device(dev).type == "cuda":
-            assert gc.contact_degrees.launches > before
+            assert fused_modes
+            assert gc.contact_degrees.launches - before == sum(fused_modes)
         outs["card" if dev != "cpu" else "cpu"] = out
     assert (outs["card"] / "alignment_summary.tsv").read_bytes() == \
         (outs["cpu"] / "alignment_summary.tsv").read_bytes()
@@ -397,11 +420,13 @@ def test_pipeline_on_card_matches_cpu(cuda, tmp_path):
             assert abs(float(a[4]) - float(b[4])) <= 1e-4 + 1e-9
 
 
-def test_server_on_card_matches_cpu(cuda, tmp_path):
+def test_server_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     """``AnnotationServer(device="cuda:0")`` answers through its batcher
     thread (whose current device is not set by the caller) and its socket
     as the same server on the CPU does: the same ids, skips and metadata,
-    scores within one unit of the 4th decimal, B1/B2 launched."""
+    scores within one unit of the 4th decimal, B1 launched three times for
+    every mode of a GCN batch that the ``"auto"`` table sends to the fused
+    kernels."""
     from metagenomic_deepfri_tpu_torch import synthetic
     from metagenomic_deepfri_tpu_torch.serving import (AnnotationServer,
                                                        annotate_over_socket)
@@ -430,9 +455,11 @@ def test_server_on_card_matches_cpu(cuda, tmp_path):
     kw = dict(databases=[tmp_path / "structures"], max_eval=1e-3, threads=4)
     ref = AnnotationServer(weights, device="cpu", **kw).annotate(queries)
     srv = AnnotationServer(weights, device="cuda:0", **kw)
+    fused_modes = _fused_modes_per_batch(monkeypatch)
     before = gc.graphconv_aggregate.launches
     got = srv.submit(dict(queries), timeout=300)
-    assert gc.graphconv_aggregate.launches > before
+    assert fused_modes
+    assert gc.graphconv_aggregate.launches - before == 3 * sum(fused_modes)
     sock_dir = tempfile.mkdtemp()   # Unix socket paths are short
     sock = Path(sock_dir) / "s.sock"
     ready = threading.Event()
@@ -463,3 +490,38 @@ def test_server_on_card_matches_cpu(cuda, tmp_path):
                     assert (want.get(term) or have.get(term)) <= 0.1 + 1e-4
     assert got["results"]["h0"]["aligned"] and not \
         got["results"]["n0"]["aligned"]
+
+
+def test_nw_device_matches_host_on_card(cuda):
+    """The device NW wavefront on the card equals the host engine on 200
+    seeded pairs (8 queries × 25 targets) at three gap settings."""
+    from metagenomic_deepfri_tpu_torch.align.matrices import ScoringMatrix
+    from metagenomic_deepfri_tpu_torch.ops.nw import (nw_score_many,
+                                                      nw_score_many_device)
+
+    sm = ScoringMatrix.from_name("BLOSUM62")
+    rng = np.random.default_rng(11)
+    aas = list(AMINO_ACIDS)
+    gaps = [(10, 1), (11, 1), (5, 2)]
+    for i in range(8):
+        go, ge = gaps[i % 3]
+        q = "".join(rng.choice(aas, size=int(rng.integers(1, 301))))
+        targets = ["".join(rng.choice(aas, size=int(rng.integers(1, 301))))
+                   for _ in range(25)]
+        got = nw_score_many_device(q, targets, sm, go, ge, device=cuda)
+        assert np.array_equal(got, nw_score_many(q, targets, sm, go, ge))
+
+
+def test_device_only_gcn_pps_on_card(cuda):
+    """``bench_utils.device_only_gcn_pps`` on the card: a finite positive
+    rate on each route, named with the card."""
+    from metagenomic_deepfri_tpu_torch import bench_utils
+
+    for spmm in ("fused", "dense"):
+        row = bench_utils.device_only_gcn_pps(bucket=128, n_labels=64,
+                                              reps=2, batch_cap=8,
+                                              spmm=spmm, device=cuda)
+        assert row["spmm_route"] == spmm
+        assert np.isfinite(row["device_only_pps"])
+        assert row["device_only_pps"] > 0
+    assert bench_utils.device_name(cuda) == torch.cuda.get_device_name(0)

@@ -1,9 +1,10 @@
 """Port engine (torch, CPU) against the JAX engine, and the port's isolation.
 
-The port's ``BatchedPredictor(device="cpu")`` (fused path; on CPU tensors
+The port's ``BatchedPredictor(device="cpu", spmm="fused")`` (on CPU tensors
 the GraphConv wrappers run their plain twins) is held to the JAX
 ``BatchedPredictor(spmm="xla")`` on identical weights and items: per-id score
-rows at float32 atol 1e-5.
+rows at float32 atol 1e-5. The ``spmm="auto"`` policy
+(:mod:`..batching.spmm_table`) is checked against its table.
 """
 
 import os
@@ -14,6 +15,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -24,6 +26,7 @@ from metagenomic_deepfri_tpu.batching.engine import \
 from metagenomic_deepfri_tpu.models.deepfri import GCNConfig as JaxGCNConfig
 from metagenomic_deepfri_tpu.models.deepfri import init_gcn as jax_init_gcn
 from metagenomic_deepfri_tpu_torch.batching import engine as engine_mod
+from metagenomic_deepfri_tpu_torch.batching import spmm_table
 from metagenomic_deepfri_tpu_torch.batching.engine import (BatchedPredictor,
                                                            ModelHandle)
 from metagenomic_deepfri_tpu_torch.models.deepfri import GCNConfig
@@ -68,7 +71,7 @@ def test_engine_matches_jax(shared_lm):
     ref = JaxPredictor(gcn_models=jax_h, buckets=BUCKETS, batch_cap=4,
                        spmm="xla").predict_gcn_from_coords(items)
     engine = BatchedPredictor(torch_h, device="cpu", buckets=BUCKETS,
-                              batch_cap=4)
+                              batch_cap=4, spmm="fused")
     assert highest_f32_precision_active()
     gc.reset_launch_counts()
     out = engine.predict_gcn_from_coords(items)
@@ -116,7 +119,8 @@ def test_dense_route_matches_fused():
     _, torch_h = _handles(shared_lm=False)
     items = _items()
     fused = BatchedPredictor(torch_h, device="cpu", buckets=BUCKETS,
-                             batch_cap=4).predict_gcn_from_coords(items)
+                             batch_cap=4, spmm="fused"
+                             ).predict_gcn_from_coords(items)
     dense = BatchedPredictor(torch_h, device="cpu", buckets=BUCKETS,
                              batch_cap=4, spmm="dense"
                              ).predict_gcn_from_coords(items, modes=["cc"])
@@ -163,6 +167,56 @@ def test_engine_rejects_bad_arguments():
     assert engine.predict_gcn_from_coords([]) == {m: {} for m in LABELS}
 
 
+def test_resolve_spmm_policy():
+    table = spmm_table.AUTO_SPMM_TABLE
+    assert {d for _, d in table} == {"bfloat16", "float32"}
+    assert sorted({b for b, _ in table}) == [128, 256, 512, 1024, 2048]
+    assert set(table.values()) <= {"fused", "dense"}
+    cuda = torch.device("cuda")  # constructible without a card
+    for (bucket, dtype), route in table.items():
+        assert spmm_table.resolve_spmm("auto", bucket, dtype, cuda) == route
+        for dev in ("cpu", torch.device("cpu")):  # "auto" off the card
+            assert spmm_table.resolve_spmm("auto", bucket, dtype,
+                                           dev) == "dense"
+        for forced in ("fused", "dense"):
+            for dev in ("cpu", "cuda:1"):
+                assert spmm_table.resolve_spmm(forced, bucket, dtype,
+                                               dev) == forced
+    for bucket, nearest in ((1, 128), (100, 128), (300, 256), (700, 512),
+                            (900, 1024), (1536, 1024), (1537, 2048),
+                            (5000, 2048)):
+        for dtype in ("bfloat16", "float32"):
+            assert spmm_table.resolve_spmm("auto", bucket, dtype, "cuda:0") \
+                == table[(nearest, dtype)]
+    assert spmm_table.resolve_spmm("auto", 512, "float64", cuda) == "dense"
+    with pytest.raises(ValueError, match="spmm"):
+        spmm_table.resolve_spmm("pallas", 512, "float32", cuda)
+
+
+@pytest.mark.parametrize("spmm", ["auto", "fused", "dense"])
+def test_engine_routes_by_policy(monkeypatch, spmm):
+    """Single-mode batches take the route ``resolve_spmm`` gives each mode
+    (on the CPU "auto" is "dense"); the default policy is "auto"."""
+    _, torch_h = _handles(shared_lm=False)
+    engine = BatchedPredictor(torch_h, device="cpu", buckets=BUCKETS,
+                              batch_cap=4, **({} if spmm == "auto"
+                                              else {"spmm": spmm}))
+    assert engine.spmm == spmm
+    want = "fused" if spmm == "fused" else "dense"
+    assert {engine._mode_spmm(m, b) for m in LABELS
+            for b in BUCKETS} == {want}
+    calls = []
+    for name in ("gcn_forward", "gcn_forward_fused"):
+        real = getattr(engine_mod, name)
+        monkeypatch.setattr(engine_mod, name, lambda *a, _n=name, _r=real,
+                            **k: calls.append(_n) or _r(*a, **k))
+    out = engine.predict_gcn_from_coords(_items())
+    assert set(calls) == {"gcn_forward_fused" if want == "fused"
+                          else "gcn_forward"}
+    assert len(calls) == len(LABELS) * 3  # 1 batch at 32, 2 at 64
+    assert all(len(out[m]) == 10 for m in LABELS)
+
+
 def _port_modules():
     mods = []
     for path in sorted((REPO / PKG).rglob("*.py")):
@@ -188,7 +242,8 @@ def test_port_imports_no_jax():
         "align.matrices", "align.pairwise", "data.fasta", "ontology.go",
         "parallel.multihost", "search.binaries", "search.database",
         "search.engine", "search.mmseqs", "search.pdb", "search.query",
-        "search.results", "serving", "contact_map")} <= set(mods)
+        "search.results", "serving", "contact_map", "bench_utils",
+        "batching.spmm_table")} <= set(mods)
     proc = _run_python(f"""
         import importlib, sys
         for name in {mods!r} + ["chip_smoke"]:

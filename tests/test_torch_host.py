@@ -1,7 +1,8 @@
 """The port's host modules against the JAX package's, exact unless stated:
 FASTA I/O, contact-map alignment and projection, the streaming checkpoint,
-GO propagation, input sharding and merging, the blocklist, profiling, the
-package constants and the utilities."""
+GO propagation, input sharding and merging, the blocklist, profiling and
+its trace hook, the device NW wavefront, the package constants and the
+utilities."""
 
 import gzip
 import json
@@ -19,16 +20,19 @@ from metagenomic_deepfri_tpu import utils as jax_utils
 from metagenomic_deepfri_tpu.align.pairwise import \
     AlignmentResult as JaxAlignmentResult
 from metagenomic_deepfri_tpu.data import fasta as jax_fasta
+from metagenomic_deepfri_tpu.align import matrices as jax_matrices
 from metagenomic_deepfri_tpu.ontology import go as jax_go
 from metagenomic_deepfri_tpu.ops import cmap_align as jax_cmap_align
+from metagenomic_deepfri_tpu.ops import nw as jax_nw
 from metagenomic_deepfri_tpu.parallel import multihost as jax_multihost
 import metagenomic_deepfri_tpu_torch as pkg
 from metagenomic_deepfri_tpu_torch import bio_utils, checkpoint, profiling
 from metagenomic_deepfri_tpu_torch import pipeline, utils
+from metagenomic_deepfri_tpu_torch.align import matrices
 from metagenomic_deepfri_tpu_torch.align.pairwise import AlignmentResult
 from metagenomic_deepfri_tpu_torch.data import fasta
 from metagenomic_deepfri_tpu_torch.ontology import go
-from metagenomic_deepfri_tpu_torch.ops import cmap_align
+from metagenomic_deepfri_tpu_torch.ops import cmap_align, nw
 from metagenomic_deepfri_tpu_torch.parallel import multihost
 
 AAS = list("ACDEFGHIKLMNPQRSTVWY")
@@ -316,6 +320,62 @@ def test_profiling_stages():
     finally:
         profiling.reset()
     assert profiling.report() == {}
+
+
+@pytest.mark.parametrize("how", ["argument", "environment", "neither"])
+def test_torch_trace(how, tmp_path, monkeypatch):
+    """The trace hook writes a Chrome trace into the explicit directory,
+    else into ``MDEEPFRI_TPU_TRACE_DIR``, and is a no-op without either."""
+    import torch
+
+    monkeypatch.delenv("MDEEPFRI_TPU_TRACE_DIR", raising=False)
+    arg = tmp_path / "arg" if how == "argument" else None
+    if how == "environment":
+        monkeypatch.setenv("MDEEPFRI_TPU_TRACE_DIR", str(tmp_path / "env"))
+    with profiling.torch_trace(arg):
+        (torch.ones(64, 64) @ torch.ones(64, 64)).sum().item()
+    traces = sorted(tmp_path.rglob("*.json"))
+    if how == "neither":
+        assert traces == []
+        return
+    (trace,) = traces
+    assert trace.parent == tmp_path / ("arg" if arg else "env")
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any("aten::mm" in str(e.get("name")) for e in events)
+
+
+# ---- device NW ---------------------------------------------------------------
+
+def test_nw_device_matches_jax_and_host():
+    """200 seeded pairs (8 queries × 25 targets, lengths 1–300, some
+    near-copies) at gap settings (10, 1), (11, 1), (5, 2): the torch
+    wavefront on the CPU equals the JAX wavefront and the host engine,
+    exactly (int32)."""
+    ours = matrices.ScoringMatrix.from_name("BLOSUM62")
+    theirs = jax_matrices.ScoringMatrix.from_name("BLOSUM62")
+    rng = np.random.default_rng(11)
+    gaps = [(10, 1), (11, 1), (5, 2)]
+    for i in range(8):
+        q = _random_seq(rng, int(rng.integers(1, 301)))
+        targets = []
+        for j in range(25):
+            if j % 5 == 0:  # a near-copy: ~20 % substitutions
+                t = list(q)
+                for pos in rng.choice(len(q), size=len(q) // 5,
+                                      replace=False):
+                    t[pos] = rng.choice(AAS)
+                targets.append("".join(t))
+            else:
+                targets.append(_random_seq(rng, int(rng.integers(1, 301))))
+        go, ge = gaps[i % 3]
+        got = nw.nw_score_many_device(q, targets, ours, go, ge, device="cpu")
+        assert got.dtype == np.int32 and got.shape == (25,)
+        assert np.array_equal(got, jax_nw.nw_score_many_device(
+            q, targets, theirs, go, ge))
+        assert np.array_equal(got, nw.nw_score_many(q, targets, ours, go,
+                                                    ge))
+    empty = nw.nw_score_many_device("ACDE", [], ours, device="cpu")
+    assert empty.shape == (0,) and empty.dtype == np.int32
 
 
 # ---- constants and utilities ----------------------------------------------------

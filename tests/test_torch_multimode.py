@@ -214,7 +214,7 @@ def test_fused_engine_stays_per_mode_on_shared_placement(monkeypatch):
     _, torch_h = _engine_handles(_trees())
     calls = _count_multimode(monkeypatch)
     fused = engine.BatchedPredictor(torch_h, device="cpu", batch_cap=4,
-                                    buckets=(32, 64))
+                                    buckets=(32, 64), spmm="fused")
     assert fused._gcn_shared is not None and fused._multi_key(
         list(LABELS)) is None
     # the shared subtrees are placed once and aliased into every mode
@@ -232,3 +232,28 @@ def test_fused_engine_stays_per_mode_on_shared_placement(monkeypatch):
         for q in dense[m]:
             np.testing.assert_allclose(out[m][q], dense[m][q], rtol=0,
                                        atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype, atol", [("float32", 1e-5),
+                                         ("bfloat16", 2e-3)])
+def test_default_engine_runs_shared_trunk_like_jax(monkeypatch, dtype, atol):
+    """Both packages' default engines ("auto") on three modes sharing the
+    LM: one shared-trunk step a batch, the same scores."""
+    jax_h, torch_h = _engine_handles(_trees(compute_dtype=dtype))
+    items = aligned_items(9, seed=8, min_len=12, max_len=60)
+    jax_eng = jax_engine.BatchedPredictor(gcn_models=jax_h, batch_cap=4,
+                                          buckets=(32, 64))
+    assert jax_eng.spmm == "auto" and jax_eng._multi_key(list(LABELS))
+    ref = jax_eng.predict_gcn_from_coords(items)
+    calls = _count_multimode(monkeypatch)
+    port = engine.BatchedPredictor(torch_h, device="cpu", batch_cap=4,
+                                   buckets=(32, 64))
+    assert port.spmm == "auto" and port._multi_key(list(LABELS))
+    assert port._multi_key(["cc"]) is None
+    out = port.predict_gcn_from_coords(items)
+    assert len(calls) == 3 and all(c == sorted(LABELS) for c in calls)
+    for m in LABELS:
+        assert set(out[m]) == set(ref[m])
+        for q in ref[m]:
+            np.testing.assert_allclose(out[m][q], ref[m][q], rtol=0,
+                                       atol=atol)
