@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU, and check it.
+"""Drive the PyTorch port's main path once on NVIDIA GPUs, and check it.
 
     python3 chip_smoke.py
 
@@ -111,13 +111,35 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    events, and ``nw_score_many_device(device="cuda")`` equal to the host
    NW on 200 seeded pairs.
 
-Last, the kernel summary (launches on the main path, phases 4–9, max |Δ|,
-ms, plain, device, bound and library ms), the card's name and power limit,
-and ``{"ok": true, "device": {...}}``.
+10. Every visible card (one rank, or one engine replica, a card; on one
+    card a world of 1, where the ring makes no exchange and every
+    collective spans one rank; a device list beyond the cards raises):
+    B1/B2/B3 on each card against their twins there; (a) a
+    ``BatchedPredictor`` over all cards on phase 4's proteins and a
+    bucket-512 catalogue of 256, every score within 1e-4 of the one-card
+    engine's, on the fused route (mf) and under ``"auto"`` (bp/cc/mf,
+    shared trunk), launches checked per batch and card, proteins/s on one
+    card and on all; (b) phase 5's fine-tuning over one NCCL rank a card
+    (model axis 2 on an even count), the checkpoint and losses normwise
+    within 1e-4 of phase 5's, B3 once a step a rank, s/step; (c) the
+    graph-sharded forward at L 4096 (2 proteins) against ``gcn_forward`` on
+    the dense adjacency on one card (atol 1e-4), B2 once a forward a rank,
+    ms a forward and peak memory a rank; (d) ``bench_utils.
+    run_mesh_benchmark``'s rows (engine and ring at fixed work over 1, 2,
+    4, … cards).
+
+Last, the kernel summary (launches on the main path, phases 4–10, every
+rank's included; max |Δ|, ms, plain, device, bound and library ms), the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --multi-only`` runs phases 1, 2 and 10 only, with
+phase 10's references (phase 5's one-card fine-tuning, phase 6's model set
+without its ONNX round trip): the call on several cards.
 """
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import dataclasses
 import json
@@ -135,7 +157,8 @@ import numpy as np
 import torch
 
 try:
-    from metagenomic_deepfri_tpu_torch import parity, synthetic, training
+    from metagenomic_deepfri_tpu_torch import (bench_utils, parity, synthetic,
+                                               training)
     from metagenomic_deepfri_tpu_torch.batching.buckets import (
         assign_bucket, gcn_batch_size)
     from metagenomic_deepfri_tpu_torch.batching.engine import (
@@ -156,7 +179,7 @@ try:
     from metagenomic_deepfri_tpu_torch.ops.cmap_align import \
         aligned_contacts_from_coords
     from metagenomic_deepfri_tpu_torch.ops.one_hot import tokens2onehot
-    from metagenomic_deepfri_tpu_torch.parallel import train
+    from metagenomic_deepfri_tpu_torch.parallel import launch, train
     from metagenomic_deepfri_tpu_torch.precision import (
         highest_f32_precision, use_highest_f32_precision)
 except ModuleNotFoundError as err:
@@ -222,6 +245,17 @@ P8_TOPK_SIZE = 16
 P9_BUCKET = 512
 P9_BATCHES = 2
 P9_MATRIX_BUCKETS = (128, 512)
+# Phase 10: several cards (one rank, or one engine replica, a card).
+P10_CATALOGUE = 256
+P10_CATALOGUE_LENGTHS = (205, 307)   # the bucket-512 range of bench_utils
+P10_ROUNDS = 3
+P10_L = 4096
+P10_LENGTHS = (P10_L, P10_L - 301)
+P10_REPS = 3
+# Config overrides (empty: the published width) of phase 5's and phase 10's
+# GCNs, for rehearsals on the CPU.
+FT_GCN = {}
+P10_GCN = {}
 SOURCES = {
     "graphconv_aggregate": "metagenomic_deepfri_tpu_torch/csrc/graphconv.cu",
     "contact_degrees": "metagenomic_deepfri_tpu_torch/csrc/graphconv.cu",
@@ -259,15 +293,22 @@ def nvidia_smi() -> str:
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch counter to 0."""
+    """Set every kernel's launch counter to 0, this process's and the sums
+    over the ranks that ``launch.run_ranks`` started."""
     gc.reset_launch_counts()
     contact.contact_map_fused.launches = 0
+    launch.reset_rank_launch_counts()
 
 
 def launch_counts() -> dict:
-    return {"graphconv_aggregate": gc.graphconv_aggregate.launches,
-            "contact_degrees": gc.contact_degrees.launches,
-            "contact_map": contact.contact_map_fused.launches}
+    """Launches since the last reset: this process's plus its ranks'."""
+    ranks = launch.rank_launch_counts()
+    return {"graphconv_aggregate": gc.graphconv_aggregate.launches
+            + ranks["graphconv_aggregate"],
+            "contact_degrees": gc.contact_degrees.launches
+            + ranks["contact_degrees"],
+            "contact_map": contact.contact_map_fused.launches
+            + ranks["contact_map"]}
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -422,9 +463,10 @@ def expected_batches(items) -> int:
                for b, n in counts.items())
 
 
-def check_scores(out, items):
+def check_scores(out, items, modes=None):
     """Ids complete, rows of the head's width, finite and in [0, 1]."""
-    for m, n_labels in MODES.items():
+    for m in modes or MODES:
+        n_labels = MODES[m]
         if set(out[m]) != {it[0] for it in items}:
             raise AssertionError(f"mode {m}: ids missing or extra")
         rows = np.stack([out[m][it[0]] for it in items])
@@ -681,100 +723,116 @@ def assert_trees_equal(a, b, what: str) -> None:
         raise AssertionError(f"{what}: parameters differ")
 
 
-def phase_finetune(dev, smi):
-    """Phase 5: fine-tune the full-width mf GCN; returns B3's launches."""
+def finetune_corpus(root: Path) -> dict:
+    """Phase 5's seeded corpus and base weights under ``root``: the
+    full-width mf GCN config, its terms, the structures, the labels TSV and
+    the weights folder."""
     # The ONNX graphs consume the adjacency as fed (as the published ones
     # do), so the imported config has no normalisation.
-    cfg = deepfri.GCNConfig(n_labels=FT_TERMS, adj_norm="none")
+    cfg = deepfri.GCNConfig(n_labels=FT_TERMS, adj_norm="none", **FT_GCN)
     terms = synthetic.goterms(FT_TERMS)
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        structures, labels_path = synthetic.write_training_corpus(
-            tmp, FT_PROTEINS, terms, seed=SEED)
-        base = deepfri.init_gcn(cfg, torch.Generator().manual_seed(SEED),
-                                "cpu")
-        weights = synthetic.write_gcn_weights(tmp / "weights", cfg, base,
-                                              terms)
-        base_handle = load_model_handle(
-            "gcn", "mf", next(weights.glob("*.onnx")),
-            next(weights.glob("*_model_params.json")))
-        if base_handle.config != cfg:
-            raise AssertionError(f"base config {base_handle.config}")
+    structures, labels_path = synthetic.write_training_corpus(
+        root, FT_PROTEINS, terms, seed=SEED)
+    base = deepfri.init_gcn(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    weights = synthetic.write_gcn_weights(root / "weights", cfg, base, terms)
+    return {"cfg": cfg, "terms": terms, "structures": structures,
+            "labels": labels_path, "weights": weights}
 
-        dataset = training.FineTuneDataset(
-            structures, training.load_labels(labels_path, terms))
-        plan = list(dataset.batch_plan(FT_BATCH, np.random.default_rng(SEED)))
-        counts = {}
-        for bucket, _ in plan:
-            counts[bucket] = counts.get(bucket, 0) + 1
-        log(f"phase 5: {len(dataset.items)} structures, {len(plan)} batches "
-            f"an epoch {counts}, {FT_EPOCHS} epochs, batch {FT_BATCH}")
 
-        # Each batch's adjacency (B3 on the card) against the host maps.
-        batches = {}
-        for (bucket, chunk), batch in zip(plan, dataset.iter_batches(
-                FT_BATCH, np.random.default_rng(SEED), dev), strict=True):
-            host = np.zeros((len(chunk), bucket, bucket), np.float32)
-            for j, idx in enumerate(chunk):
-                xyz = dataset.items[idx][1]
-                host[j, :len(xyz), :len(xyz)] = contact.calculate_contact_map(
-                    xyz, threshold=dataset.contact_threshold)
-            if not np.array_equal(batch[1].cpu().numpy(), host):
-                raise AssertionError(f"bucket {bucket}: B3 adjacency differs "
-                                     "from the host contact maps")
-            batches.setdefault(bucket, batch)
-        log(f"  adjacency of all {len(plan)} batches equals the host maps")
+def finetune_run(dev, ft: dict, out: Path, on_step=None):
+    """``training.finetune`` of phase 5's settings on ``ft``'s corpus."""
+    return training.finetune(
+        ft["weights"], "mf", ft["structures"], ft["labels"], out,
+        device=dev, epochs=FT_EPOCHS, learning_rate=FT_LR,
+        batch_size=FT_BATCH, seed=SEED, on_step=on_step)
 
-        losses = []
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        ckpt = training.finetune(
-            weights, "mf", structures, labels_path, tmp / "out",
-            device=dev, epochs=FT_EPOCHS, learning_rate=FT_LR,
-            batch_size=FT_BATCH, seed=SEED,
-            on_step=lambda i, loss: losses.append(loss))
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        launches = launch_counts()
-        want = FT_EPOCHS * len(plan)
-        losses = torch.stack(losses).cpu().numpy()
-        log(f"  finetune: {secs:.2f} s, {len(losses)} steps, launches "
-            f"{launches}, losses {losses[0]:.5f} … {losses[-1]:.5f}")
-        if launches["contact_map"] != want or len(losses) != want:
-            raise AssertionError(f"expected {want} steps and B3 launches")
-        if not np.isfinite(losses).all():
-            raise AssertionError("non-finite training loss")
 
-        out = ckpt.parent
-        params_json = next(out.glob("*_model_params.json"))
-        tuned = load_model_handle("gcn", "mf", ckpt, params_json)
-        reexport = load_model_handle("gcn", "mf", next(out.glob("*.onnx")),
-                                     params_json)
-        if tuned.config != cfg or reexport.config != cfg:
-            raise AssertionError("fine-tuned config differs from the base")
-        assert_trees_equal(tuned.params, reexport.params, ".npz vs ONNX")
-        log("  .npz and ONNX re-export load back with equal parameters")
+def phase_finetune(dev, smi, root: Path):
+    """Phase 5: fine-tune the full-width mf GCN in ``root``; returns B3's
+    launches and ``ft``: the corpus (:func:`finetune_corpus`) with the
+    checkpoint (``ckpt``), the losses, and the run's seconds."""
+    ft = finetune_corpus(root)
+    cfg, terms, structures, labels_path, weights = (
+        ft["cfg"], ft["terms"], ft["structures"], ft["labels"],
+        ft["weights"])
+    base_handle = load_model_handle(
+        "gcn", "mf", next(weights.glob("*.onnx")),
+        next(weights.glob("*_model_params.json")))
+    if base_handle.config != cfg:
+        raise AssertionError(f"base config {base_handle.config}")
 
-        fixed = batches[max(batches)]
-        with torch.no_grad():
-            before, after = (train.gcn_loss(
-                gcn_params_from_numpy(h.params, dev), cfg, *fixed).item()
-                for h in (base_handle, tuned))
-        log(f"  fixed bucket-{max(batches)} batch: loss {before:.6f} before, "
-            f"{after:.6f} after")
-        if not after < before:
-            raise AssertionError("fine-tuning did not lower the loss")
+    dataset = training.FineTuneDataset(
+        structures, training.load_labels(labels_path, terms))
+    plan = list(dataset.batch_plan(FT_BATCH, np.random.default_rng(SEED)))
+    counts = {}
+    for bucket, _ in plan:
+        counts[bucket] = counts.get(bucket, 0) + 1
+    log(f"phase 5: {len(dataset.items)} structures, {len(plan)} batches "
+        f"an epoch {counts}, {FT_EPOCHS} epochs, batch {FT_BATCH}")
 
-        errs = precision_check(base_handle.params, cfg, fixed, dev)
-        log(f"  loss and gradients vs float64 on the card (normwise, worst "
-            f"leaf): float32 {errs['float32']:.3g} (rtol {GRAD_RTOL}), "
-            f"TF32 {errs['tf32']:.3g} (reported, not asserted)")
-        if not errs["float32"] <= GRAD_RTOL:
-            raise AssertionError("float32 gradients differ from float64")
+    # Each batch's adjacency (B3 on the card) against the host maps.
+    batches = {}
+    for (bucket, chunk), batch in zip(plan, dataset.iter_batches(
+            FT_BATCH, np.random.default_rng(SEED), dev), strict=True):
+        host = np.zeros((len(chunk), bucket, bucket), np.float32)
+        for j, idx in enumerate(chunk):
+            xyz = dataset.items[idx][1]
+            host[j, :len(xyz), :len(xyz)] = contact.calculate_contact_map(
+                xyz, threshold=dataset.contact_threshold)
+        if not np.array_equal(batch[1].cpu().numpy(), host):
+            raise AssertionError(f"bucket {bucket}: B3 adjacency differs "
+                                 "from the host contact maps")
+        batches.setdefault(bucket, batch)
+    log(f"  adjacency of all {len(plan)} batches equals the host maps")
 
-        for row in step_times(base_handle.params, cfg, batches, dev):
-            log(f"  train step {json.dumps(row)} on {smi}")
-    return launches["contact_map"]
+    losses = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ckpt = finetune_run(dev, ft, root / "out",
+                        on_step=lambda i, loss: losses.append(loss))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    want = FT_EPOCHS * len(plan)
+    losses = torch.stack(losses).cpu().numpy()
+    log(f"  finetune: {secs:.2f} s, {len(losses)} steps, launches "
+        f"{launches}, losses {losses[0]:.5f} … {losses[-1]:.5f}")
+    if launches["contact_map"] != want or len(losses) != want:
+        raise AssertionError(f"expected {want} steps and B3 launches")
+    if not np.isfinite(losses).all():
+        raise AssertionError("non-finite training loss")
+
+    out = ckpt.parent
+    params_json = next(out.glob("*_model_params.json"))
+    tuned = load_model_handle("gcn", "mf", ckpt, params_json)
+    reexport = load_model_handle("gcn", "mf", next(out.glob("*.onnx")),
+                                 params_json)
+    if tuned.config != cfg or reexport.config != cfg:
+        raise AssertionError("fine-tuned config differs from the base")
+    assert_trees_equal(tuned.params, reexport.params, ".npz vs ONNX")
+    log("  .npz and ONNX re-export load back with equal parameters")
+
+    fixed = batches[max(batches)]
+    with torch.no_grad():
+        before, after = (train.gcn_loss(
+            gcn_params_from_numpy(h.params, dev), cfg, *fixed).item()
+            for h in (base_handle, tuned))
+    log(f"  fixed bucket-{max(batches)} batch: loss {before:.6f} before, "
+        f"{after:.6f} after")
+    if not after < before:
+        raise AssertionError("fine-tuning did not lower the loss")
+
+    errs = precision_check(base_handle.params, cfg, fixed, dev)
+    log(f"  loss and gradients vs float64 on the card (normwise, worst "
+        f"leaf): float32 {errs['float32']:.3g} (rtol {GRAD_RTOL}), "
+        f"TF32 {errs['tf32']:.3g} (reported, not asserted)")
+    if not errs["float32"] <= GRAD_RTOL:
+        raise AssertionError("float32 gradients differ from float64")
+
+    for row in step_times(base_handle.params, cfg, batches, dev):
+        log(f"  train step {json.dumps(row)} on {smi}")
+    ft.update(ckpt=ckpt, losses=losses, secs=secs)
+    return launches["contact_map"], ft
 
 
 def fused_modes(engine, bucket: int, modes) -> int:
@@ -797,6 +855,11 @@ def expect_launches(got: dict, want: dict, what: str) -> None:
     log(f"  {what}: launches {got}, expected {want}")
     if got != want:
         raise AssertionError(f"{what}: kernel launch counts differ")
+
+
+def require_launches(got: dict, names, what: str) -> None:
+    if not all(got[k] > 0 for k in names):
+        raise AssertionError(f"{what}: no launch of {names}: {got}")
 
 
 def no_hit_sequences(n: int, seed: int) -> list:
@@ -917,7 +980,7 @@ def fetch_times(dev, reps: int = 50) -> dict:
 def phase_models(dev, smi, items, weights):
     """Phase 6: the published model set, written to the folder ``weights``
     (phase 7 reads it again), through the whole engine; every check raises
-    on failure."""
+    on failure. Returns the loaded GCN handles."""
     seqs = no_hit_sequences(P6_SEQS, SEED)
     gcn_np, cnn_np = model_set_params(dev, items, seqs)
     synthetic.write_model_set(
@@ -1040,6 +1103,7 @@ def phase_models(dev, smi, items, weights):
         f"sequences, {len(MODES)} modes): {json.dumps(rates)} on {smi}")
     log(f"  bp fetch of one batch ({BATCH_CAP} × {MODES['bp']}): "
         f"{json.dumps(fetch_times(dev))} on {smi}")
+    return gcn_h
 
 def mini_obo(path: Path, n_terms: int) -> Path:
     """A GO OBO over the synthetic terms: GO:i is_a GO:(i-1)//2 for the
@@ -1644,7 +1708,7 @@ def phase_bench(dev, smi, kind: str, root: Path, device_arg: str):
     import contextlib
     import io
 
-    from metagenomic_deepfri_tpu_torch import bench_utils, cli, profiling
+    from metagenomic_deepfri_tpu_torch import cli, profiling
     from metagenomic_deepfri_tpu_torch.align.matrices import ScoringMatrix
     from metagenomic_deepfri_tpu_torch.ops.nw import (nw_score_many,
                                                       nw_score_many_device)
@@ -1723,12 +1787,303 @@ def phase_bench(dev, smi, kind: str, root: Path, device_arg: str):
     return launches
 
 
-def main() -> int:
+def launches_since(before: dict) -> dict:
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def kernels_on_every_card(devices) -> None:
+    """B1/B2/B3 on each listed card against their twins there (the kernels'
+    per-device state: the current device is entered per launch)."""
+    g = torch.Generator().manual_seed(SEED)
+    batch = synthetic.contact_batch(B=4, L=512, seed=SEED + 7)
+    xs_host = torch.randn((4, 512, 200), generator=g)
+    for d in devices:
+        dev = torch.device(d)
+        coords, ins, lengths = (torch.from_numpy(a).to(dev) for a in batch)
+        xs = xs_host.to(dev)
+        pairs = {
+            "contact_map": (contact.contact_map_fused(coords, lengths),
+                            contact.batched_contact_maps(coords, lengths)),
+            "contact_degrees": (gc.contact_degrees(coords, ins, lengths),
+                                gc.contact_degrees_ref(coords, ins,
+                                                       lengths)),
+            "graphconv_aggregate": (
+                gc.graphconv_aggregate(coords, ins, lengths, xs),
+                gc.graphconv_aggregate_ref(coords, ins, lengths, xs))}
+        torch.cuda.synchronize(dev)
+        errs = {}
+        for name, (got, ref) in pairs.items():
+            if got.device != dev:
+                raise AssertionError(f"{name} ran on {got.device}, not {dev}")
+            errs[name] = (got - ref).abs().max().item()
+            tol = (dict(AGG_TOL) if name == "graphconv_aggregate"
+                   else dict(rtol=0, atol=0))
+            torch.testing.assert_close(got, ref, **tol)
+        log(f"  kernels on {dev}: max|Δ| {json.dumps(errs)}")
+
+
+def counting_batches(engine) -> list:
+    """(bucket, modes) of every batch ``engine`` runs from now on."""
+    seen = []
+    real = engine._run_batch
+
+    def spy(bucket, chunk, batch, modes, *args, **kwargs):
+        seen.append((bucket, tuple(modes)))
+        return real(bucket, chunk, batch, modes, *args, **kwargs)
+
+    engine._run_batch = spy
+    return seen
+
+
+def multi_engine(devices, gcn_h, items, smi) -> None:
+    """Phase 10 (a): the data-parallel engine over ``devices`` against the
+    one-card engine, on the fused route (mf) and under "auto" (3 modes,
+    shared trunk); launches checked per batch and card."""
+    catalogue = bench_utils.make_random_items(
+        P10_CATALOGUE, *P10_CATALOGUE_LENGTHS, seed=SEED + 40, form="coords")
+    work = items + catalogue
+    rates = {}
+    for label, modes, spmm in (("fused, mf", ["mf"], "fused"),
+                               ("auto, bp/cc/mf", list(MODES), "auto")):
+        engines = {"one": BatchedPredictor(gcn_h, device=devices[:1],
+                                           spmm=spmm),
+                   "all": BatchedPredictor(gcn_h, device=devices,
+                                           spmm=spmm)}
+        outs = {}
+        for key, eng in engines.items():
+            seen = counting_batches(eng)
+            before = launch_counts()
+            outs[key], n, _ = run_stream(eng, work, modes=modes)
+            want = gcn_launches(len(eng.devices) * sum(
+                fused_modes(eng, b, list(m)) for b, m in seen))
+            expect_launches(launches_since(before), want,
+                            f"(a) {label}, {len(eng.devices)} card(s), "
+                            f"{len(seen)} batches")
+            if n != len(work):
+                raise AssertionError(f"processed {n} of {len(work)}")
+            check_scores(outs[key], work, modes)
+        diff = max_diff(outs["one"], outs["all"])
+        log(f"  (a) {label}: {len(devices)} cards vs one, {len(work)} "
+            f"proteins: max|Δ|={diff:.3g} (atol {ROUTE_ATOL})")
+        if not diff <= ROUTE_ATOL:
+            raise AssertionError("the data-parallel engine differs from "
+                                 "the one-card engine")
+        samples = {key: [] for key in engines}
+        for _ in range(P10_ROUNDS):
+            for key, eng in engines.items():
+                samples[key].append(run_stream(eng, work, modes=modes)[2])
+        rates[label] = {f"{len(eng.devices)}_cards_proteins_per_s":
+                        len(work) / float(np.median(samples[key]))
+                        for key, eng in engines.items()}
+    log(f"  (a) warm passes, median of {P10_ROUNDS} in turns, "
+        f"{len(work)} proteins (phase 4's and a bucket-512 catalogue of "
+        f"{P10_CATALOGUE}), float32, engine batch sizes: "
+        f"{json.dumps(rates)} on {smi}")
+
+
+def normwise_tree_err(a: dict, b: dict) -> float:
+    """Worst leaf of max |a - b| / max |b| over two numpy trees."""
+    fa, fb = registry._flatten(a), registry._flatten(b)
+    if fa.keys() != fb.keys():
+        raise AssertionError("checkpoint trees differ in structure")
+    return max(float(np.abs(fa[k] - fb[k]).max()
+                     / max(np.abs(fb[k]).max(), 1e-300)) for k in fa)
+
+
+def multi_finetune(devices, ft: dict, root: Path, smi) -> None:
+    """Phase 10 (b): phase 5's fine-tuning over one rank a card (model axis
+    2 on an even count). The first step's loss and gradients over the ranks
+    are held to one card's (normwise, ``GRAD_RTOL``); the whole run's
+    checkpoint and losses to phase 5's: exactly on one card, reported on
+    several (Adam turns reduction-order rounding in near-zero gradient
+    entries into whole steps of the learning rate, and the saturated
+    synthetic heads amplify it over the run)."""
+    n = len(devices)
+    mp = 2 if n >= 2 and n % 2 == 0 else 1
+    dev0 = torch.device(devices[0])
+    cfg = ft["cfg"]
+    base = load_model_handle("gcn", "mf", next(ft["weights"].glob("*.onnx")),
+                             next(ft["weights"].glob("*_model_params.json")))
+    dataset = training.FineTuneDataset(
+        ft["structures"], training.load_labels(ft["labels"], ft["terms"]))
+    batch = next(dataset.iter_batches(FT_BATCH, np.random.default_rng(SEED),
+                                      "cpu"))
+    loss, grads = train.value_and_grad(
+        devices, cfg, base.params, [t.numpy() for t in batch],
+        model_parallel=mp)
+    ref = loss_and_grads(base.params, cfg, [t.to(dev0) for t in batch], dev0)
+    got = [torch.tensor(loss)] + [torch.from_numpy(g) for g in
+                                  train.param_leaves(grads)]
+    step_err = max(normwise_err(g, r.cpu())
+                   for g, r in zip(got, ref, strict=True))
+    log(f"  (b) first step over {n} rank(s), data {n // mp} x model {mp}: "
+        f"loss and gradients vs one card normwise {step_err:.3g} (rtol "
+        f"{GRAD_RTOL})")
+    if not step_err <= GRAD_RTOL:
+        raise AssertionError("multi-card gradients differ from one card")
+
+    losses = []
+    before = launch_counts()
+    t0 = time.perf_counter()
+    ckpt = training.finetune(
+        ft["weights"], "mf", ft["structures"], ft["labels"],
+        root / "out_multi", device=devices, epochs=FT_EPOCHS,
+        learning_rate=FT_LR, batch_size=FT_BATCH, seed=SEED,
+        model_parallel=mp, on_step=lambda i, loss: losses.append(float(loss)))
+    secs = time.perf_counter() - t0
+    expect_launches(launches_since(before), {
+        "graphconv_aggregate": 0, "contact_degrees": 0,
+        "contact_map": len(losses) * n},
+        f"(b) {len(losses)} steps on {n} rank(s), B3 a step a rank")
+    tuned_cfg, params = registry.load_checkpoint(ckpt)
+    ref_cfg, ref_params = registry.load_checkpoint(ft["ckpt"])
+    if tuned_cfg != ref_cfg:
+        raise AssertionError("multi-card checkpoint config differs")
+    err = normwise_tree_err(params, ref_params)
+    ref_losses = np.asarray(ft["losses"], np.float64)
+    loss_rel = np.abs(np.asarray(losses) - ref_losses) / np.abs(ref_losses)
+    log(f"  (b) finetune over {n} rank(s), batch {FT_BATCH}, "
+        f"{len(losses)} steps: checkpoint vs one card normwise {err:.3g}; "
+        f"losses rel per step {[float(f'{x:.3g}') for x in loss_rel]}; "
+        f"{secs:.2f} s, {secs / len(losses):.4f} s/step with rank start-up "
+        f"and loading (one card, phase 5: "
+        f"{ft['secs'] / len(ref_losses):.4f}) on {smi}")
+    if not np.isfinite(losses).all():
+        raise AssertionError("non-finite multi-card training loss")
+    if not loss_rel[0] <= GRAD_RTOL:
+        raise AssertionError("multi-card first loss differs from one card")
+    if n == 1 and (err != 0.0 or loss_rel.max() != 0.0):
+        raise AssertionError("a world of one differs from the one-card run")
+
+
+def multi_graph(devices, smi) -> None:
+    """Phase 10 (c): the graph-sharded forward at L 4096 over one rank a
+    card, against ``gcn_forward`` on the dense adjacency on one card."""
+    n = len(devices)
+    cfg = deepfri.GCNConfig(n_labels=FT_TERMS, **P10_GCN)
+    params = gcn_params_to_numpy(deepfri.init_gcn(
+        cfg, torch.Generator().manual_seed(SEED + 50), "cpu"))
+    coords, ins, _ = bench_utils.random_walk_batch(len(P10_LENGTHS), P10_L,
+                                                   SEED + 51)
+    lengths = np.asarray(P10_LENGTHS, np.int32)
+    tokens = np.random.default_rng(SEED + 52).integers(
+        1, 21, coords.shape[:2]).astype(np.uint8)
+    dev0 = torch.device(devices[0])
+    base = torch.cuda.memory_allocated(dev0)
+    torch.cuda.reset_peak_memory_stats(dev0)
+    p0 = gcn_params_from_numpy(params, dev0)
+    t, c, i, ln = (torch.from_numpy(a).to(dev0)
+                   for a in (tokens, coords, ins, lengths))
+
+    def dense():
+        return deepfri.gcn_forward(
+            p0, cfg, t, aligned_contacts_from_coords(c, i, ln), ln)
+
+    with torch.no_grad():
+        ref = dense().cpu().numpy()
+        dense_ms = 1e3 * float(np.mean([timed(dense)[1]
+                                        for _ in range(P10_REPS)]))
+    dense_gib = (torch.cuda.max_memory_allocated(dev0) - base) / 2**30
+    before = launch_counts()
+    ring = bench_utils.graph_forward_timing(devices, cfg, params, tokens,
+                                            coords, ins, lengths,
+                                            reps=P10_REPS)
+    expect_launches(launches_since(before), {
+        "graphconv_aggregate": 0, "contact_map": 0,
+        "contact_degrees": (2 + P10_REPS) * n},
+        f"(c) {2 + P10_REPS} forwards on {n} rank(s), B2 once each")
+    err = float(np.abs(ring["scores"] - ref).max())
+    log(f"  (c) graph-sharded forward, {len(lengths)} proteins at L {P10_L} "
+        f"(lengths {list(P10_LENGTHS)}), float32, {n} rank(s): max|Δ| vs "
+        f"the dense forward on one card {err:.3g} (atol {SLICE_ATOL}); ms a "
+        f"forward {[round(m, 2) for m in ring['ms']]} (dense one card "
+        f"{dense_ms:.2f}); peak GiB a rank "
+        f"{[b and round(b / 2**30, 3) for b in ring['peak_bytes']]} (dense one "
+        f"card {dense_gib:.3f}) on {smi}")
+    if not err <= SLICE_ATOL:
+        raise AssertionError("the graph-sharded forward differs from the "
+                             "dense forward")
+
+
+def phase_multi(devices, smi, gcn_h, items, ft: dict, root: Path) -> dict:
+    """Phase 10: several cards. Returns the phase's launches, every rank's
+    included."""
+    n = len(devices)
+    root.mkdir(parents=True, exist_ok=True)
+    log(f"phase 10: {n} card(s) {devices}, "
+        + ("a world of 1: the ring makes no exchange and every collective "
+           "spans one rank" if n == 1 else
+           f"a world of {n}: one NCCL rank (or engine replica) a card"))
+    try:
+        launch.device_list([f"cuda:{i}" for i in range(n + 1)])
+    except ValueError as err:
+        log(f"  {n + 1} ranks on {n} card(s) raise: {err}")
+    else:
+        raise AssertionError("a device list beyond the cards did not raise")
+    kernels_on_every_card(devices)
+    reset_launch_counts()
+    multi_engine(devices, gcn_h, items, smi)
+    multi_finetune(devices, ft, root, smi)
+    multi_graph(devices, smi)
+    before = launch_counts()
+    t0 = time.perf_counter()
+    line = bench_utils.run_mesh_benchmark(devices, root / "mesh.json")
+    got = launches_since(before)
+    log(f"  (d) run_mesh_benchmark ({time.perf_counter() - t0:.2f} s, "
+        f"launches {got}) on {smi}:")
+    log(line)
+    for row in json.loads((root / "mesh.json").read_text())[
+            "data_parallel_fixed_work"]["rows"]:
+        log(f"    dp {json.dumps(row)}")
+    for row in json.loads((root / "mesh.json").read_text())[
+            "graph_ring_fixed_L"]["rows"]:
+        log(f"    ring {json.dumps(row)}")
+    require_launches(got, ("graphconv_aggregate", "contact_degrees"),
+                     "(d) the fused engine rows")
+    return launch_counts()
+
+
+def multi_only(dev, smi, kind, devices) -> int:
+    """``--multi-only``: phase 10 and what it is compared with (phase 5's
+    one-card fine-tuning, phase 6's model set made without its ONNX round
+    trip), for a call on several cards."""
+    items = synthetic.aligned_items(N_PROTEINS, seed=SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        ft = finetune_corpus(root / "ft")
+        losses = []
+        t0 = time.perf_counter()
+        ft["ckpt"] = finetune_run(dev, ft, root / "ft" / "out",
+                                  on_step=lambda i, loss: losses.append(
+                                      float(loss)))
+        ft.update(losses=np.asarray(losses), secs=time.perf_counter() - t0)
+        gcn_h, _ = model_set_params(dev, items,
+                                    no_hit_sequences(P6_SEQS, SEED))
+        launches = phase_multi(devices, smi, gcn_h, items, ft,
+                               root / "multi")
+    log(json.dumps({"phase_10_launches": launches}))
+    log(nvidia_smi())
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        description="Drive the port's main path on the GPU and check it.")
+    parser.add_argument(
+        "--multi-only", action="store_true",
+        help="Run phases 1, 2 and 10 only, with phase 10's references "
+             "(for a call on several cards).")
+    args = parser.parse_args(argv)
     # Phase 1: device.
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the port's main path needs a GPU")
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
+    devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
     smi = nvidia_smi()
     log(f"device: {kind}; count {torch.cuda.device_count()}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -1745,6 +2100,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {line.strip()}")
     check_hgmma(lib_path)
+    if args.multi_only:
+        return multi_only(dev, smi, kind, devices)
 
     # Phase 3: kernels against their plain twins.
     log("phase 3: kernels vs plain twins")
@@ -1801,26 +2158,29 @@ def main() -> int:
     for r in times:
         log(f"  {json.dumps(r)}")
 
-    # Phase 5: the fine-tuning path (B3 builds each batch's adjacency).
-    launches["contact_map"] = phase_finetune(dev, smi)
-    cmap_times = contact_map_times(dev)
-    log(f"contact_map times (CUDA events, mean of 10) on {smi}:")
-    for r in cmap_times:
-        log(f"  {json.dumps(r)}")
-
     with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        # Phase 5: the fine-tuning path (B3 builds each batch's adjacency).
+        launches["contact_map"], ft = phase_finetune(dev, smi, root / "ft")
+        cmap_times = contact_map_times(dev)
+        log(f"contact_map times (CUDA events, mean of 10) on {smi}:")
+        for r in cmap_times:
+            log(f"  {json.dumps(r)}")
         # Phase 6: the published model set, both networks, both GCN routes.
-        weights = Path(tmp) / "weights"
-        phase_models(dev, smi, items, weights)
+        weights = root / "weights"
+        gcn_h = phase_models(dev, smi, items, weights)
         # Phase 7: predict-function end to end (B1/B2 in every GCN batch).
-        p7_launches, p7_inputs = phase_predict(dev, smi, weights, Path(tmp),
+        p7_launches, p7_inputs = phase_predict(dev, smi, weights, root,
                                                "cuda")
         # Phase 8: the resident server over its socket (B1/B2 again).
-        p8_launches = phase_serve(dev, smi, weights, Path(tmp), p7_inputs,
-                                  "cuda")
+        p8_launches = phase_serve(dev, smi, weights, root, p7_inputs, "cuda")
         # Phase 9: the benchmark verb (its launches), bench_utils, NW.
-        p9_launches = phase_bench(dev, smi, kind, Path(tmp), "cuda")
-        for counts in (p7_launches, p8_launches, p9_launches):
+        p9_launches = phase_bench(dev, smi, kind, root, "cuda")
+        # Phase 10: every card: the data-parallel engine, fine-tuning over
+        # ranks, the graph-sharded forward, the scaling rows.
+        p10_launches = phase_multi(devices, smi, gcn_h, items, ft,
+                                   root / "multi")
+        for counts in (p7_launches, p8_launches, p9_launches, p10_launches):
             for name, n in counts.items():
                 launches[name] += n
 

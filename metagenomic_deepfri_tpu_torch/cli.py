@@ -11,6 +11,9 @@ cli.py``) with its flags, names and defaults: ``search-databases``,
 ``--version``. The verbs that run a model (``predict-function``,
 ``finetune``, ``verify-weights``, ``serve``, ``benchmark``) take
 ``--device``, which is required: the port never picks a device by itself.
+``predict-function``, ``serve`` and ``finetune`` also take several,
+comma-separated (``--device cuda:0,cuda:1``): the engine then runs
+data-parallel over them, and fine-tuning one rank a device.
 
 The command line uses ``argparse`` only. A usage error prints the verb's
 full help and exits 2 (the JAX package's ``patch_usage_error``); a failed
@@ -350,9 +353,11 @@ def cmd_benchmark(args) -> int:
     return 0
 
 
-def _device_option(p: argparse.ArgumentParser) -> None:
+def _device_option(p: argparse.ArgumentParser, several: bool = False) -> None:
     p.add_argument("--device", required=True,
-                   help="Where the models run: cuda, cuda:1, cpu.")
+                   help="Where the models run: cuda, cuda:1, cpu"
+                   + ("; or several, comma-separated (cuda:0,cuda:1), to "
+                      "run data-parallel over them." if several else "."))
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -411,7 +416,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("-w", "--weights", required=True,
                    type=_path_type(exists=True, file_okay=False),
                    help="Path to a folder containing model weights.")
-    _device_option(p)
+    _device_option(p, several=True)
     p.add_argument("-p", "--processing-modes", action="append",
                    choices=ALL_MODES, default=None,
                    help="Processing modes; repeatable. Default is all "
@@ -463,7 +468,7 @@ def _parser() -> argparse.ArgumentParser:
                    type=_path_type(exists=True),
                    help="Base model weights folder (model_config.json "
                         "layout).")
-    _device_option(p)
+    _device_option(p, several=True)
     p.add_argument("-m", "--mode", required=True,
                    choices=["bp", "cc", "mf", "ec"],
                    help="Ontology mode whose GCN to fine-tune.")
@@ -480,8 +485,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--learning-rate", default=1e-4, type=float)
     p.add_argument("--batch-size", default=8, type=int)
     p.add_argument("--model-parallel", default=1, type=int,
-                   help="Tensor-parallel size (only 1 is supported on one "
-                        "device).")
+                   help="Tensor-parallel size: devices along the model "
+                        "axis; must divide the number of --device entries "
+                        "(default: %(default)s).")
     p.add_argument("--angstrom-contact-thresh", default=6.0, type=float)
     p.add_argument("--seed", default=0, type=int)
 
@@ -518,7 +524,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("-w", "--weights", required=True,
                    type=_path_type(exists=True),
                    help="Path to the folder containing model weights.")
-    _device_option(p)
+    _device_option(p, several=True)
     p.add_argument("-d", "--db-path", action="append", default=[],
                    type=_path_type(exists=True),
                    help="Structure database(s): FoldComp, FASTA, or a "

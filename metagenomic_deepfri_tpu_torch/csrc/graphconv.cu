@@ -28,6 +28,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace {
@@ -678,18 +679,22 @@ cudaError_t launch_aggregate(const float* coords, const uint8_t* ins,
                              int B, int L, int D, float thr2, int gen,
                              cudaStream_t stream) {
   constexpr int kMaxDevices = 64;
-  static bool ready[kMaxDevices] = {};  // dynamic smem limit set, per device
+  // Dynamic smem limit set, per device. Host threads may launch at once,
+  // each on its own current device, so the flags are atomic; two threads
+  // that both find a flag unset both set the same attribute, which is
+  // harmless.
+  static std::atomic<bool> ready[kMaxDevices];
   auto kernel = graphconv_aggregate_kernel<kPlanes, kVec4>;
   const int bytes =
       static_cast<int>(sizeof(agg::Smem<kPlanes>)) + agg::kSmemAlign;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices || !ready[dev]) {
+  if (dev >= kMaxDevices || !ready[dev].load(std::memory_order_acquire)) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
-    if (dev < kMaxDevices) ready[dev] = true;
+    if (dev < kMaxDevices) ready[dev].store(true, std::memory_order_release);
   }
   CUtensorMap map = {};
   if (kVec4) {

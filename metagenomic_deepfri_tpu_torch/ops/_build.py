@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
@@ -99,13 +100,23 @@ def kernel_sass(lib: Path) -> dict[str, str]:
     return kernels
 
 
-@functools.lru_cache(maxsize=1)
+_load_lock = threading.Lock()
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernels, with every signature set.
 
-    ``argtypes`` use ``c_void_p`` for each pointer and the stream; without
-    them ctypes would pass Python ints as 32-bit C ints and cut pointers.
+    One build a process, however many host threads launch their first
+    kernels at once. ``argtypes`` use ``c_void_p`` for each pointer and the
+    stream; without them ctypes would pass Python ints as 32-bit C ints and
+    cut pointers.
     """
+    with _load_lock:
+        return _load_library()
+
+
+@functools.lru_cache(maxsize=1)
+def _load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.mdf_contact_degrees.argtypes = [p, p, p, p, i, i, f, i, p]

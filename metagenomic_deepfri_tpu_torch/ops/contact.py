@@ -10,7 +10,8 @@ Counterpart of ``metagenomic_deepfri_tpu/ops/contact.py``:
 - :func:`contact_map_fused` is the B3 wrapper. On a CPU tensor it runs the
   twin; on a CUDA tensor it launches the kernel in ``csrc/contact.cu``
   (counterpart of the Pallas ``_contact_map_fused_impl``, ``:126-199``) or
-  raises. It counts its launches in ``contact_map_fused.launches``.
+  raises. It counts its launches in ``contact_map_fused.launches``
+  (:func:`count_launch`, safe from several threads).
 
 The distance is the exact per-axis float32 difference form, summed x, y, z
 in that order, everywhere. The Gram identity ‖a‖²+‖b‖²−2a·b would run on
@@ -19,12 +20,22 @@ tensor cores and flip contacts that sit near the threshold.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
 from metagenomic_deepfri_tpu_torch.ops import _build
 
 _MAX_GRID_BATCH = 65535  # CUDA grid y/z limit; the batch is a grid axis
+_launches_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, under a lock, so that host threads
+    launching at once (one a card, say) lose no count."""
+    with _launches_lock:
+        wrapper.launches += 1
 
 
 def _thr2(threshold: float) -> float:
@@ -179,7 +190,7 @@ def contact_map_fused(coords: torch.Tensor, lengths: torch.Tensor,
     code = _launch(coords.device, lib.mdf_contact_map, coords.data_ptr(),
                    lengths.data_ptr(), out.data_ptr(), B, L, _thr2(threshold))
     _build.check(lib, code, "contact_map_fused")
-    contact_map_fused.launches += 1
+    count_launch(contact_map_fused)
     return out
 
 

@@ -10,7 +10,7 @@ plain PyTorch twin (``*_ref``, built on the dense
 :func:`.cmap_align.aligned_contacts_from_coords`); on a CUDA tensor it
 launches the kernel or raises. There is no fallback from one to the other.
 Each wrapper counts its kernel launches in a plain integer attribute,
-``<wrapper>.launches``.
+``<wrapper>.launches``, under a lock (:func:`.contact.count_launch`).
 
 The aggregation kernel multiplies on the tensor cores in bfloat16: for
 float32 compute it splits each xs element into three bf16 planes
@@ -29,7 +29,8 @@ from metagenomic_deepfri_tpu_torch.ops import _build
 from metagenomic_deepfri_tpu_torch.ops.cmap_align import \
     aligned_contacts_from_coords
 from metagenomic_deepfri_tpu_torch.ops.contact import (_check_kernel_inputs,
-                                                       _launch, _route, _thr2)
+                                                       _launch, _route, _thr2,
+                                                       count_launch)
 
 _COMPUTE_DTYPES = ("float32", "bfloat16")
 
@@ -127,7 +128,7 @@ def contact_degrees(coords: torch.Tensor, ins_mask: torch.Tensor,
                    ins_mask.data_ptr(), lengths.data_ptr(), deg.data_ptr(),
                    B, L, _thr2(threshold), int(generated_contacts))
     _build.check(lib, code, "contact_degrees")
-    contact_degrees.launches += 1
+    count_launch(contact_degrees)
     return deg
 
 
@@ -165,7 +166,7 @@ def graphconv_aggregate(coords: torch.Tensor, ins_mask: torch.Tensor,
                    xs.data_ptr(), out.data_ptr(), B, L, D, _thr2(threshold),
                    int(generated_contacts), int(compute_dtype == "bfloat16"))
     _build.check(lib, code, "graphconv_aggregate")
-    graphconv_aggregate.launches += 1
+    count_launch(graphconv_aggregate)
     return out
 
 

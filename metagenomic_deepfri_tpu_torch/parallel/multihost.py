@@ -1,12 +1,12 @@
 """Multi-host catalogue sharding: deterministic input partition + merge.
 
-A copy of the host part of ``metagenomic_deepfri_tpu/parallel/multihost.py``
-(``:31-110``): :func:`shard_of`, :func:`shard_fasta` and
+A copy of ``metagenomic_deepfri_tpu/parallel/multihost.py`` (``:31-110``):
+:func:`shard_of`, :func:`shard_fasta`, :func:`shard_fasta_for_process` and
 :func:`merge_shard_results`. Each host runs the full pipeline on a
 deterministic slice of the query FASTA (``--shard I/N``) and the per-host
-output directories concatenate into catalogue-level results. The JAX
-package's ``shard_fasta_for_process`` reads the JAX process index and has no
-counterpart here yet.
+output directories concatenate into catalogue-level results. Where the JAX
+package reads its process index from ``jax.distributed``, the port reads
+the rank of an initialised ``torch.distributed`` process group.
 """
 
 from __future__ import annotations
@@ -49,6 +49,20 @@ def shard_fasta(input_fasta, output_fasta, host_index: int,
     logger.info("Shard %d/%d: %d queries → %s",
                 host_index, host_count, len(shard), output_fasta)
     return output_fasta, len(shard)
+
+
+def shard_fasta_for_process(input_fasta, output_fasta) -> Tuple[Path, int]:
+    """Shard by this process's rank in an initialised ``torch.distributed``
+    process group (``get_rank()`` of ``get_world_size()``); without one,
+    the process is shard 0 of 1, as ``jax.process_index()`` /
+    ``process_count()`` are without ``jax.distributed``."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        index, count = dist.get_rank(), dist.get_world_size()
+    else:
+        index, count = 0, 1
+    return shard_fasta(input_fasta, output_fasta, index, count)
 
 
 def merge_shard_results(shard_dirs: Iterable, output_dir) -> List[Path]:

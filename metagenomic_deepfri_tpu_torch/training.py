@@ -13,7 +13,11 @@ Counterpart of ``metagenomic_deepfri_tpu/training.py``:
   (B, bucket, bucket) adjacency is built on the device by one launch of the
   B3 contact-map kernel (:func:`..ops.contact.contact_map_fused`), equal
   entry for entry to the host maps.
-- **training**: :mod:`.parallel.train` on one device (no mesh yet).
+- **training**: :mod:`.parallel.train`, on one device in this process, or
+  over a device list with one rank a device (:mod:`.parallel.launch`) on a
+  (data, model) mesh: every rank draws the same batches with the same seed
+  and keeps its data slice, whose adjacency B3 builds on the rank's own
+  card; rank 0 gathers the parameters and writes the outputs.
 - **output**: a native ``.npz`` checkpoint plus an ONNX re-export with the
   model-params JSON, named as the JAX package names them, so the fine-tuned
   model drops back into ``model_config.json`` / either registry.
@@ -29,6 +33,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from metagenomic_deepfri_tpu_torch.batching.buckets import (DEFAULT_BUCKETS,
                                                             bucket_plan)
@@ -42,6 +47,13 @@ from metagenomic_deepfri_tpu_torch.models.registry import (load_model_handle,
                                                            save_checkpoint)
 from metagenomic_deepfri_tpu_torch.ops.contact import contact_map_fused
 from metagenomic_deepfri_tpu_torch.ops.one_hot import seq2tokens
+from metagenomic_deepfri_tpu_torch.parallel.launch import (device_list,
+                                                           run_ranks)
+from metagenomic_deepfri_tpu_torch.parallel.mesh import (DATA_AXIS,
+                                                         axis_rank,
+                                                         axis_size, make_mesh)
+from metagenomic_deepfri_tpu_torch.parallel.shard import (gather_params,
+                                                          gcn_param_pspecs)
 from metagenomic_deepfri_tpu_torch.parallel.train import (init_train_state,
                                                           make_train_step)
 from metagenomic_deepfri_tpu_torch.precision import use_highest_f32_precision
@@ -138,7 +150,7 @@ class FineTuneDataset:
                 yield bucket, chunk
 
     def iter_batches(self, batch_size: int, rng: np.random.Generator,
-                     device):
+                     device, shard: Tuple[int, int] = (0, 1)):
         """Yield (tokens, adjacency, lengths, labels) batches on ``device``.
 
         Shapes and dtypes as the JAX dataset's: tokens (n, bucket) uint8,
@@ -146,10 +158,19 @@ class FineTuneDataset:
         columns zeroed, lengths (n,) int32, labels (n, n_labels) int32. The
         adjacency comes from one :func:`..ops.contact.contact_map_fused`
         call on the padded coordinates (the B3 kernel on a CUDA device).
+        ``shard=(index, count)`` keeps the index-th of ``count`` equal
+        contiguous slices of every batch (``batch_size`` a multiple of
+        ``count``), before anything reaches the device.
         """
         device = torch.device(device)
         n_labels = self.items[0][2].shape[0]
+        index, count = shard
+        if batch_size % count:
+            raise ValueError(f"batch_size {batch_size} does not split into "
+                             f"{count} slices")
+        part = batch_size // count
         for bucket, chunk in self.batch_plan(batch_size, rng):
+            chunk = chunk[index * part:(index + 1) * part]
             n = len(chunk)
             tokens = np.zeros((n, bucket), np.uint8)
             coords = np.zeros((n, bucket, 3), np.float32)
@@ -167,6 +188,99 @@ class FineTuneDataset:
                 for a in (tokens, coords, lengths, labels))
             adj = contact_map_fused(coords, lengths, self.contact_threshold)
             yield tokens, adj, lengths, labels
+
+
+def _base_model(weights, mode: str):
+    """(handle, goterms) of one mode's base GCN from a weights folder."""
+    models_config = load_deepfri_config(weights)
+    if mode not in models_config["gcn"]:
+        raise ValueError(f"No GCN weights for mode {mode!r} in {weights}")
+    model_path = models_config["gcn"][mode]
+    params_json = str(Path(model_path).with_suffix("")) + "_model_params.json"
+    logger.info("Loading gcn/%s from %s", mode, model_path)
+    handle = load_model_handle("gcn", mode, model_path, params_json)
+    goterms = handle.goterms or [str(i) for i in range(handle.config.n_labels)]
+    return handle, goterms
+
+
+def _train_epochs(step, state, dataset: FineTuneDataset, batch_size: int,
+                  rng, device, epochs: int, log_every: int, on_step,
+                  shard: Tuple[int, int] = (0, 1)):
+    """The epochs of a run: every batch through ``step``; returns (state,
+    last epoch's mean loss)."""
+    step_idx = 0
+    last_loss = float("nan")
+    for epoch in range(epochs):
+        losses = []
+        for tokens, adj, lengths, lab in dataset.iter_batches(
+                batch_size, rng, device, shard):
+            state, loss = step(state, tokens, adj, lengths, lab)
+            losses.append(loss)
+            step_idx += 1
+            if on_step is not None:
+                on_step(step_idx, loss)
+            if step_idx % log_every == 0:
+                logger.info("step %d: loss %.4f", step_idx, float(loss))
+        last_loss = float(np.mean([float(l) for l in losses]))
+        logger.info("epoch %d/%d: mean loss %.4f",
+                    epoch + 1, epochs, last_loss)
+    return state, last_loss
+
+
+def _write_outputs(output_dir, mode: str, config, params: dict, handle,
+                   goterms: list, contact_threshold: float) -> Path:
+    """The ``.npz`` checkpoint, ONNX re-export and params JSON of a run."""
+    output_dir = Path(output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    ckpt_path = output_dir / f"gcn_{mode}_finetuned.npz"
+    save_checkpoint(ckpt_path, config, params)
+    onnx_name = (f"DeepFRI-FINETUNED_GraphConv_"
+                 f"gcd_{'-'.join(map(str, config.gc_dims))}_"
+                 f"fcd_{'-'.join(map(str, config.fc_dims))}_ca_"
+                 f"{contact_threshold}_{mode}.onnx")
+    onnx_path = output_dir / onnx_name
+    export_gcn_to_onnx(params, config, str(onnx_path))
+    with open(output_dir / (onnx_name[:-5] + "_model_params.json"), "w",
+              encoding="utf-8") as f:
+        json.dump({"goterms": goterms,
+                   "gonames": handle.gonames or [""] * len(goterms)}, f)
+    return ckpt_path
+
+
+def _finetune_rank(device, weights, mode, structures_dir, labels_path,
+                   output_dir, epochs, learning_rate, batch_size,
+                   contact_threshold, model_parallel, seed, log_every):
+    """One rank of a run over several devices: its shards and data slice;
+    rank 0 returns (every step's loss, the checkpoint path)."""
+    handle, goterms = _base_model(weights, mode)
+    config = handle.config
+    dataset = FineTuneDataset(structures_dir,
+                              load_labels(labels_path, goterms),
+                              contact_threshold=contact_threshold)
+    mesh = make_mesh(model_parallel=model_parallel)
+    dp = axis_size(mesh, DATA_AXIS)
+    if batch_size % dp:  # as the JAX finetune rounds to the data axis
+        batch_size += dp - batch_size % dp
+    if config.compute_dtype == "float32":
+        use_highest_f32_precision()
+    state = init_train_state(config, learning_rate, device,
+                             params=handle.params, mesh=mesh)
+    losses = []
+    state, last_loss = _train_epochs(
+        make_train_step(config, mesh), state, dataset, batch_size,
+        np.random.default_rng(seed), device, epochs, log_every,
+        lambda i, loss: losses.append(loss),
+        shard=(axis_rank(mesh, DATA_AXIS), dp))
+    params = gather_params(state.params, mesh,
+                           gcn_param_pspecs(handle.params))
+    if dist.get_rank() != 0:
+        return None
+    ckpt_path = _write_outputs(output_dir, mode, config, params, handle,
+                               goterms, contact_threshold)
+    logger.info("Fine-tuned %s over %d devices (model_parallel %d): final "
+                "mean loss %.4f → %s", mode, dist.get_world_size(),
+                model_parallel, last_loss, ckpt_path)
+    return [float(l) for l in losses], ckpt_path
 
 
 def finetune(weights,
@@ -190,25 +304,34 @@ def finetune(weights,
     Loads the base GCN through the ONNX registry, trains with
     :mod:`.parallel.train`, and writes a native ``.npz`` checkpoint (with its
     ``_config.json``) plus an ONNX re-export and params JSON compatible with
-    the inference pipeline's ``model_config.json`` layout. ``on_step``, if
-    given, is called after every step with its 1-based index and the
-    detached loss tensor (reading it synchronises the device).
-    """
-    if model_parallel != 1:
-        raise NotImplementedError(
-            "model_parallel > 1 needs the multi-GPU port (mesh data and "
-            "tensor parallelism), which is not written yet")
-    device = torch.device(device)
-    models_config = load_deepfri_config(weights)
-    if mode not in models_config["gcn"]:
-        raise ValueError(f"No GCN weights for mode {mode!r} in {weights}")
-    model_path = models_config["gcn"][mode]
-    params_json = str(Path(model_path).with_suffix("")) + "_model_params.json"
-    logger.info("Loading gcn/%s from %s", mode, model_path)
-    handle = load_model_handle("gcn", mode, model_path, params_json)
-    config = handle.config
-    goterms = handle.goterms or [str(i) for i in range(config.n_labels)]
+    the inference pipeline's ``model_config.json`` layout.
 
+    ``device`` is one device, or a list (``["cuda:0", "cuda:1"]``,
+    ``"cuda:0,cuda:1"``) to train over one rank a device on a (data,
+    model) mesh with ``model_parallel`` ranks along the model axis, which
+    must divide the device count (``ValueError`` otherwise, as the JAX
+    ``make_mesh``); ``batch_size`` is then rounded up to a multiple of the
+    data axis. ``on_step``, if given, is called with each step's 1-based
+    index and detached loss tensor (reading it synchronises the device):
+    after every step on one device, after the run over several.
+    """
+    devices = device_list(device)
+    if model_parallel < 1 or len(devices) % model_parallel:
+        raise ValueError(f"model_parallel={model_parallel} does not divide "
+                         f"{len(devices)} devices")
+    if len(devices) > 1:
+        losses, ckpt_path = run_ranks(
+            _finetune_rank, devices, weights, mode, structures_dir,
+            labels_path, output_dir, epochs, learning_rate, batch_size,
+            contact_threshold, model_parallel, seed, log_every)[0]
+        if on_step is not None:
+            for i, loss in enumerate(losses, start=1):
+                on_step(i, torch.tensor(loss))
+        return ckpt_path
+
+    device = devices[0]
+    handle, goterms = _base_model(weights, mode)
+    config = handle.config
     labels = load_labels(labels_path, goterms)
     dataset = FineTuneDataset(structures_dir, labels,
                               contact_threshold=contact_threshold)
@@ -217,41 +340,12 @@ def finetune(weights,
         use_highest_f32_precision()
     state = init_train_state(config, learning_rate, device,
                              params=handle.params)
-    step = make_train_step(config)
-
-    rng = np.random.default_rng(seed)
-    step_idx = 0
-    last_loss = float("nan")
-    for epoch in range(epochs):
-        losses = []
-        for tokens, adj, lengths, lab in dataset.iter_batches(batch_size,
-                                                              rng, device):
-            state, loss = step(state, tokens, adj, lengths, lab)
-            losses.append(loss)
-            step_idx += 1
-            if on_step is not None:
-                on_step(step_idx, loss)
-            if step_idx % log_every == 0:
-                logger.info("step %d: loss %.4f", step_idx, float(loss))
-        last_loss = float(np.mean([float(l) for l in losses]))
-        logger.info("epoch %d/%d: mean loss %.4f",
-                    epoch + 1, epochs, last_loss)
-
-    output_dir = Path(output_dir)
-    output_dir.mkdir(parents=True, exist_ok=True)
-    params = gcn_params_to_numpy(state.params)
-    ckpt_path = output_dir / f"gcn_{mode}_finetuned.npz"
-    save_checkpoint(ckpt_path, config, params)
-    onnx_name = (f"DeepFRI-FINETUNED_GraphConv_"
-                 f"gcd_{'-'.join(map(str, config.gc_dims))}_"
-                 f"fcd_{'-'.join(map(str, config.fc_dims))}_ca_"
-                 f"{contact_threshold}_{mode}.onnx")
-    onnx_path = output_dir / onnx_name
-    export_gcn_to_onnx(params, config, str(onnx_path))
-    with open(output_dir / (onnx_name[:-5] + "_model_params.json"), "w",
-              encoding="utf-8") as f:
-        json.dump({"goterms": goterms,
-                   "gonames": handle.gonames or [""] * len(goterms)}, f)
+    state, last_loss = _train_epochs(
+        make_train_step(config), state, dataset, batch_size,
+        np.random.default_rng(seed), device, epochs, log_every, on_step)
+    ckpt_path = _write_outputs(output_dir, mode, config,
+                               gcn_params_to_numpy(state.params), handle,
+                               goterms, contact_threshold)
     logger.info("Fine-tuned %s: final mean loss %.4f → %s",
                 mode, last_loss, ckpt_path)
     return ckpt_path

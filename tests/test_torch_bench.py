@@ -201,3 +201,32 @@ def test_auto_table_rule(margin, spread, want):
              {"bucket": 1024, "dtype": "bfloat16", "spmm": "dense",
               "error": "OutOfMemoryError"}]
     assert bench_utils.auto_table(cells) == {"512,bfloat16": want}
+
+
+def test_mesh_benchmark(repo_root_untouched, tmp_path):
+    """``run_mesh_benchmark`` over two CPU devices at a tiny size: engine
+    rows for 1 and 2 devices at the same work, ring rows for 1 and 2 ranks
+    (gloo), written only to ``out_path``; no device rate is claimed on the
+    CPU, only positive finite numbers named with the device."""
+    cfg = GCNConfig(n_labels=9, lm_hidden=8, lm_layers=1, embed_dim=16,
+                    gc_dims=(8, 8), fc_dims=(16,), compute_dtype="float32")
+    out = tmp_path / "mesh.json"
+    line = json.loads(bench_utils.run_mesh_benchmark(
+        "cpu,cpu", out, config=cfg, bucket=32, n_proteins=12, ring_L=32,
+        ring_D=8, passes=1, ring_reps=1))
+    report = json.loads(out.read_text())
+    dp = report["data_parallel_fixed_work"]["rows"]
+    ring = report["graph_ring_fixed_L"]["rows"]
+    assert [r["n_devices"] for r in dp] == [r["n_devices"] for r in ring] \
+        == [1, 2]
+    assert report["data_parallel_fixed_work"]["n_proteins"] == 12
+    assert all(r["proteins_per_s"] > 0 for r in dp)
+    assert all(np.isfinite(r[k]) and r[k] >= 0 for r in ring
+               for k in ("aggregate_ms", "exchange_ms", "blocks_ms"))
+    assert all(r["aggregate_ms"] > 0 for r in ring)
+    assert report["peer_access"] is None  # CPU devices
+    assert dp[0]["speedup"] == ring[0]["speedup"] == 1.0
+    assert line["detail"]["device"] == "cpu" and line["detail"]["n_devices"] \
+        == 2
+    assert bench_utils._device_counts(6) == [1, 2, 4, 6]
+    assert bench_utils._device_counts(6, L=64) == [1, 2, 4]

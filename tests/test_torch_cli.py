@@ -337,3 +337,40 @@ def test_benchmark_verb(monkeypatch, capsys):
     assert line["value"] > 0 and line["detail"]["n_proteins"] == 4
     assert line["detail"]["n_labels"] == 8
     assert line["detail"]["device"] == "cpu"
+
+
+def test_device_lists_reach_the_verbs(tmp_path, monkeypatch, capsys):
+    """``--device cuda:0,cuda:1``-style lists pass through ``finetune`` (with
+    ``--model-parallel``) and ``serve`` to the functions that split them."""
+    from metagenomic_deepfri_tpu_torch import serving, training
+
+    seen = {}
+
+    def fake_finetune(*args, **kwargs):
+        seen["finetune"] = kwargs
+        return tmp_path / "ckpt.npz"
+
+    class FakeServer:
+        def __init__(self, *args, **kwargs):
+            seen["serve"] = kwargs
+
+        def serve_unix(self, path):
+            seen["socket"] = path
+
+    monkeypatch.setattr(training, "finetune", fake_finetune)
+    monkeypatch.setattr(serving, "AnnotationServer", FakeServer)
+    labels = tmp_path / "labels.tsv"
+    labels.write_text("p0\tGO:0000001\n")
+    assert cli.main(["finetune", "-w", str(tmp_path), "-m", "mf", "-i",
+                     str(tmp_path), "-l", str(labels), "-o",
+                     str(tmp_path / "out"), "--device", "cpu,cpu,cpu,cpu",
+                     "--model-parallel", "2"]) == 0
+    assert seen["finetune"]["device"] == "cpu,cpu,cpu,cpu"
+    assert seen["finetune"]["model_parallel"] == 2
+    assert cli.main(["serve", "-w", str(tmp_path), "--socket",
+                     str(tmp_path / "s.sock"), "--device", "cpu,cpu"]) == 0
+    assert seen["serve"]["device"] == "cpu,cpu"
+    for verb in ("predict-function", "finetune", "serve"):
+        assert "comma-separated" in _verb_actions(verb)["--device"].help
+    for verb in ("verify-weights", "benchmark"):
+        assert "comma-separated" not in _verb_actions(verb)["--device"].help

@@ -3,7 +3,9 @@
 B1/B2 (``csrc/graphconv.cu``) and B3 (``csrc/contact.cu``), plus one
 full-width fine-tuning step whose float32 loss and gradients are held to
 float64 on the card, and the CNN and the shared-trunk multi-mode step on
-the card against the same forwards on the CPU.
+the card against the same forwards on the CPU. On a host with several
+cards, the kernels on every card (and from one thread a card at once), the
+data-parallel engine, and NCCL ranks over every card.
 
 Marked ``cuda``: they skip where no CUDA device is present. On a machine
 with one (and without JAX, which this file does not import), run them as
@@ -525,3 +527,133 @@ def test_device_only_gcn_pps_on_card(cuda):
         assert np.isfinite(row["device_only_pps"])
         assert row["device_only_pps"] > 0
     assert bench_utils.device_name(cuda) == torch.cuda.get_device_name(0)
+
+
+# ---------------------------------------------------------------------------
+# Several cards. Run them on a host with four with the command above; each
+# skips below two cards.
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def test_kernels_on_every_card(cards):
+    """B1/B2/B3 on each card (not the current one) against their twins
+    there, each launch counted once."""
+    batch = contact_batch(B=4, L=512, seed=3)
+    xs_host = _features(4, 512, 200, seed=3)
+    for dev in cards:
+        coords, ins, lengths = _on(dev, *batch)
+        xs = xs_host.to(dev)
+        before = (gc.contact_degrees.launches, gc.graphconv_aggregate.launches,
+                  contact.contact_map_fused.launches)
+        deg = gc.contact_degrees(coords, ins, lengths)
+        out = gc.graphconv_aggregate(coords, ins, lengths, xs)
+        cmap = contact.contact_map_fused(coords, lengths)
+        torch.cuda.synchronize(dev)
+        assert (gc.contact_degrees.launches, gc.graphconv_aggregate.launches,
+                contact.contact_map_fused.launches) == tuple(
+                    b + 1 for b in before)
+        assert deg.device == out.device == cmap.device == dev
+        torch.testing.assert_close(
+            deg, gc.contact_degrees_ref(coords, ins, lengths), rtol=0, atol=0)
+        torch.testing.assert_close(
+            out, gc.graphconv_aggregate_ref(coords, ins, lengths, xs),
+            rtol=1e-5, atol=1e-4)
+        torch.testing.assert_close(
+            cmap, contact.batched_contact_maps(coords, lengths), rtol=0,
+            atol=0)
+
+
+def test_kernels_from_threads_on_every_card(cards):
+    """One host thread a card launching B1 and B2 at once (as the
+    multi-device engine does): every result right, every launch counted."""
+    batch = contact_batch(B=4, L=256, seed=5)
+    xs_host = _features(4, 256, 48, seed=5)
+    reps = 20
+    before = (gc.contact_degrees.launches, gc.graphconv_aggregate.launches)
+    errors = []
+
+    def work(dev):
+        try:
+            with torch.cuda.device(dev), torch.cuda.stream(
+                    torch.cuda.Stream(dev)):
+                coords, ins, lengths = _on(dev, *batch)
+                xs = xs_host.to(dev)
+                ref = gc.graphconv_aggregate_ref(coords, ins, lengths, xs)
+                for _ in range(reps):
+                    gc.contact_degrees(coords, ins, lengths)
+                    out = gc.graphconv_aggregate(coords, ins, lengths, xs)
+                torch.testing.assert_close(out.cpu(), ref.cpu(), rtol=1e-5,
+                                           atol=1e-4)
+        except BaseException as err:  # noqa: BLE001 - reported below
+            errors.append(err)
+
+    threads = [threading.Thread(target=work, args=(d,)) for d in cards]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    assert not errors, errors
+    assert (gc.contact_degrees.launches - before[0],
+            gc.graphconv_aggregate.launches - before[1]) == (
+                reps * len(cards), reps * len(cards))
+
+
+def test_engine_over_every_card_matches_one(cards):
+    """The data-parallel engine over every card against one card, on the
+    fused route: the same scores, B1/B2 on every card's slice."""
+    cfg = GCNConfig(n_labels=40, lm_hidden=64, lm_layers=1, embed_dim=64,
+                    gc_dims=(32, 32), fc_dims=(64,))
+    h = {"mf": ModelHandle("gcn", "mf", cfg, gcn_params_to_numpy(
+        init_gcn(cfg, torch.Generator().manual_seed(0), "cpu")))}
+    items = aligned_items(37, seed=4, min_len=20, max_len=200)
+    one = BatchedPredictor(h, device=cards[0], spmm="fused",
+                           batch_cap=16).predict_gcn_from_coords(items)
+    gc.reset_launch_counts()
+    many = BatchedPredictor(h, device=cards, spmm="fused", batch_cap=16)
+    got = many.predict_gcn_from_coords(items)
+    # buckets of 20-200 aa: 128 and 256; each batch runs once a card
+    assert gc.contact_degrees.launches % len(cards) == 0
+    assert gc.graphconv_aggregate.launches == 2 * gc.contact_degrees.launches
+    for qid, row in one["mf"].items():
+        np.testing.assert_allclose(got["mf"][qid], row, rtol=0, atol=1e-5)
+
+
+def test_ranks_over_every_card(cards):
+    """NCCL ranks, one a card: the data- and tensor-parallel forward and the
+    graph-sharded forward against the dense forward on one card."""
+    from metagenomic_deepfri_tpu_torch.ops.cmap_align import \
+        aligned_contacts_from_coords
+    from metagenomic_deepfri_tpu_torch.parallel import graph_shard, shard
+
+    use_highest_f32_precision()
+    cfg = GCNConfig(n_labels=8, lm_hidden=16, lm_layers=1, embed_dim=32,
+                    gc_dims=(16, 16), fc_dims=(32, 16))
+    params = gcn_params_to_numpy(init_gcn(
+        cfg, torch.Generator().manual_seed(1), "cpu", gc_bias=True))
+    n = len(cards)
+    coords, ins, lengths = contact_batch(B=2 * n, L=16 * n, seed=9)
+    tokens = np.random.default_rng(9).integers(
+        1, 21, coords.shape[:2]).astype(np.uint8)
+    dev = cards[0]
+    t, c, i, ln = (torch.from_numpy(a).to(dev)
+                   for a in (tokens, coords, ins, lengths))
+    adj = aligned_contacts_from_coords(c, i, ln)
+    with torch.no_grad():
+        ref = gcn_forward(gcn_params_from_numpy(params, dev), cfg, t, adj,
+                          ln).cpu().numpy()
+    mp = 2 if n % 2 == 0 else 1
+    got = shard.sharded_gcn_forward(cards, cfg, params, tokens,
+                                    adj.cpu().numpy(), lengths,
+                                    model_parallel=mp)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+    got = graph_shard.graph_sharded_gcn_forward(cards, cfg, params, tokens,
+                                                coords, ins, lengths)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)

@@ -217,6 +217,69 @@ def test_engine_routes_by_policy(monkeypatch, spmm):
     assert all(len(out[m]) == 10 for m in LABELS)
 
 
+@pytest.mark.parametrize("spmm, shared_lm", [("fused", False),
+                                              ("auto", True)])
+def test_engine_over_two_devices_matches_one_and_jax(spmm, shared_lm):
+    """``device=["cpu", "cpu"]`` (two replicas, each batch split in two)
+    against the one-device port (atol 1e-6) and the JAX engine over a
+    2-device mesh (the engine tests' 1e-5)."""
+    from metagenomic_deepfri_tpu.parallel.mesh import make_mesh
+
+    jax_h, torch_h = _handles(shared_lm)
+    items = _items()
+    ref = JaxPredictor(gcn_models=jax_h, buckets=BUCKETS, batch_cap=4,
+                       spmm="xla", mesh=make_mesh(n_devices=2)
+                       ).predict_gcn_from_coords(items)
+    one = BatchedPredictor(torch_h, device="cpu", buckets=BUCKETS,
+                           batch_cap=4, spmm=spmm
+                           ).predict_gcn_from_coords(items)
+    engine = BatchedPredictor(torch_h, device=["cpu", "cpu"],
+                              buckets=BUCKETS, batch_cap=4, spmm=spmm)
+    assert engine.devices == [torch.device("cpu")] * 2
+    two = engine.predict_gcn_from_coords(items)
+    for mode in LABELS:
+        assert set(two[mode]) == {it[0] for it in items}
+        for qid, row in two[mode].items():
+            np.testing.assert_allclose(row, one[mode][qid], rtol=0,
+                                       atol=1e-6)
+            np.testing.assert_allclose(row, ref[mode][qid], rtol=0,
+                                       atol=1e-5)
+
+
+def test_two_device_batches_and_slices(monkeypatch):
+    """The steady batch doubles (then the cap), every padded batch is even
+    and splits into two equal contiguous slices, one a replica."""
+    _, torch_h = _handles(shared_lm=False)
+    engine = BatchedPredictor(torch_h, device="cpu,cpu", buckets=(64,),
+                              batch_cap=None)
+    assert engine._steady_batch(64) == 2 * BatchedPredictor(
+        torch_h, device="cpu", buckets=(64,))._steady_batch(64)
+    engine = BatchedPredictor(torch_h, device="cpu,cpu", buckets=(64,),
+                              batch_cap=5)
+    assert engine._steady_batch(64) == 5 and engine._padded(5) == 6
+    seen, slices = [], []
+    real_run, real_slice = engine._run_batch, engine._slice_outputs
+
+    def run_spy(bucket, chunk, batch, *args):
+        seen.append((len(chunk), batch))
+        return real_run(bucket, chunk, batch, *args)
+
+    def slice_spy(replica, net, arrays, modes, n_real):
+        slices.append((replica, arrays[0].shape[0], n_real))
+        return real_slice(replica, net, arrays, modes, n_real)
+
+    monkeypatch.setattr(engine, "_run_batch", run_spy)
+    monkeypatch.setattr(engine, "_slice_outputs", slice_spy)
+    items = aligned_items(11, seed=1, min_len=10, max_len=60)
+    assert engine.predict_stream(iter(items), modes=["mf"]) == 11
+    # 5 + 5 steady, then 1 straggler (capped at 5): each padded to 6
+    assert seen == [(5, 6), (5, 6), (1, 6)]
+    assert slices == [(0, 3, 3), (1, 3, 2), (0, 3, 3), (1, 3, 2),
+                      (0, 3, 1), (1, 3, 0)]
+    with pytest.raises(ValueError, match="split over 2"):
+        real_run(64, items[:3], 3, ["mf"])
+
+
 def _port_modules():
     mods = []
     for path in sorted((REPO / PKG).rglob("*.py")):
@@ -243,7 +306,8 @@ def test_port_imports_no_jax():
         "parallel.multihost", "search.binaries", "search.database",
         "search.engine", "search.mmseqs", "search.pdb", "search.query",
         "search.results", "serving", "contact_map", "bench_utils",
-        "batching.spmm_table")} <= set(mods)
+        "batching.spmm_table", "parallel.mesh", "parallel.launch",
+        "parallel.shard", "parallel.graph_shard")} <= set(mods)
     proc = _run_python(f"""
         import importlib, sys
         for name in {mods!r} + ["chip_smoke"]:

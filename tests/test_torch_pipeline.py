@@ -164,7 +164,7 @@ def run_pipeline(backend: str, fixture: Path, run_dir: Path, weights,
     at ``run_dir``; the outputs are moved to ``<run_dir>_<backend>``."""
     pl = jax_pipeline if backend == "jax" else pipeline
     if backend == "torch":
-        kwargs["device"] = "cpu"
+        kwargs.setdefault("device", "cpu")
     shutil.rmtree(run_dir, ignore_errors=True)
     shutil.copytree(fixture, run_dir)
     out = run_dir / "results"
@@ -392,6 +392,24 @@ def test_sharded_pipeline_merge_equals_unsharded(weights_dir, structure_dir,
            for h in halves]
     assert not ids[0] & ids[1]
     assert ids[0] | ids[1] == {"q_hit_a", "q_hit_b", "q_nohit"}
+
+
+@pytest.mark.parametrize("skip_matrix", [False, True])
+def test_device_list_pipeline_equals_one_device(weights_dir, structure_dir,
+                                                tmp_path, skip_matrix):
+    """``device=["cpu", "cpu"]``: both engines (the streaming one and the
+    dense re-run) data-parallel over two replicas; ``results.tsv`` and the
+    matrices are the one-device run's, byte for byte."""
+    kw = dict(deepfri_processing_modes=["mf", "bp"], skip_matrix=skip_matrix)
+    one = run_pipeline("torch", structure_dir, tmp_path / "one", weights_dir,
+                       **kw)
+    two = run_pipeline("torch", structure_dir, tmp_path / "two", weights_dir,
+                       device=["cpu", "cpu"], **kw)
+    names = sorted(p.name for p in one.glob("*.tsv"))
+    assert "results.tsv" in names
+    assert names == sorted(p.name for p in two.glob("*.tsv"))
+    for name in names:
+        assert (two / name).read_bytes() == (one / name).read_bytes(), name
 
 
 def test_ec_dropped_for_v11():

@@ -333,6 +333,48 @@ def test_finetune_matches_jax(corpus, tmp_path):
 
 
 def test_finetune_rejects_model_parallel(tmp_path):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        training.finetune(tmp_path, "mf", tmp_path, tmp_path / "l.tsv",
-                          tmp_path, device="cpu", model_parallel=2)
+    """``model_parallel`` must divide the device count (the JAX
+    ``make_mesh`` error), checked before anything is read."""
+    for device, mp in (("cpu", 2), (["cpu"] * 3, 2), ("cpu,cpu", 0)):
+        with pytest.raises(ValueError, match="does not divide"):
+            training.finetune(tmp_path, "mf", tmp_path, tmp_path / "l.tsv",
+                              tmp_path, device=device, model_parallel=mp)
+
+
+def test_finetune_model_parallel_matches_jax(corpus, tmp_path):
+    """``finetune(model_parallel=2)`` over 4 CPU ranks (data 2 × model 2)
+    against the JAX ``finetune(model_parallel=2)`` on its 4×2 mesh, batch 8:
+    checkpoint atol 1e-5; the checkpoint loads into the one-device engine."""
+    from metagenomic_deepfri_tpu_torch.batching.engine import (
+        BatchedPredictor, ModelHandle)
+    from metagenomic_deepfri_tpu_torch.synthetic import aligned_items
+
+    structures, labels_path = corpus
+    jcfg = jax_deepfri.GCNConfig(**SMALL, adj_norm="none")
+    weights = _weights_dir(tmp_path, jcfg)
+    kw = dict(epochs=2, learning_rate=1e-3, batch_size=8, seed=4,
+              model_parallel=2)
+    with pytest.warns(UserWarning):
+        ref_ckpt = jax_finetune(weights, "mf", structures, labels_path,
+                                tmp_path / "jax_out", **kw)
+    steps = []
+    ckpt = training.finetune(weights, "mf", structures, labels_path,
+                             tmp_path / "out", device=["cpu"] * 4,
+                             on_step=lambda i, loss: steps.append(
+                                 (i, float(loss))), **kw)
+    assert [i for i, _ in steps] == [1, 2, 3, 4]
+    assert sorted(p.name for p in ckpt.parent.iterdir()) == sorted(
+        p.name for p in ref_ckpt.parent.iterdir())
+    _, ref_params = jax_load_checkpoint(ref_ckpt)
+    cfg, params = load_checkpoint(ckpt)
+    assert jax.tree_util.tree_structure(params) == \
+        jax.tree_util.tree_structure(ref_params)
+    for g, r in zip(jax.tree_util.tree_leaves(params),
+                    jax.tree_util.tree_leaves(ref_params), strict=True):
+        np.testing.assert_allclose(g, r, rtol=0, atol=1e-5)
+    engine = BatchedPredictor({"mf": ModelHandle("gcn", "mf", cfg, params)},
+                              device="cpu")
+    items = aligned_items(3, seed=2, min_len=20, max_len=60)
+    scores = engine.predict_gcn_from_coords(items)["mf"]
+    assert all(row.shape == (N_LABELS,) and np.isfinite(row).all()
+               for row in scores.values())
