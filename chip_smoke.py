@@ -54,9 +54,14 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    without a structure hit (length 40–1000) through ``predict_cnn`` (each
    row within 1e-5 of its unpadded single-protein run on the card), and a
    ``score_topk=256`` engine held to the dense one (overflow sets equal,
-   above-threshold values equal on complete rows). Times a warm pass of
-   each route, the CNN, and the bp head's top-k fetch against its dense
-   fetch (passes taken in turns, median of 3).
+   above-threshold values equal on complete rows). The same 96 proteins as
+   dense contact maps (each one's adjacency from the card, as bool)
+   through ``predict_gcn`` on the shared-trunk step and per mode, each
+   within 1e-4 of ``predict_gcn_from_coords`` on that route, no kernel
+   launched, and the uint8 bytes each batch sends to the card. Times a
+   warm pass of each route (``predict_gcn`` too), the CNN, and the bp
+   head's top-k fetch against its dense fetch (passes taken in turns,
+   median of 3).
 7. ``predict-function`` end to end through the port's command line on
    phase 6's weights (bp, cc, mf): a directory of 384 CA-trace PDB files
    (length 40–500) as the structure database; 256 queries copied from
@@ -80,16 +85,19 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    4th decimal (cuBLAS results on the card depend on the padded batch size
    in the last bits); rows for every mode, all ≥ 0.1, sorted; a larger
    ``results_propagated.tsv``. Prints both runs' wall time and
-   queries/s, run A's stage profile, GCN batches and peak device memory,
+   queries/s (with run B's ``inference/gcn`` seconds), run A's stage
+   profile, GCN batches and peak device memory,
    the device's busy share of run A repeated under ``torch.profiler``
    (run C), and the g++ version.
 8. The resident annotation server (``serving.AnnotationServer(device=
    "cuda")``) on phase 6's weights and phase 7's structures, with run A's
-   search settings and threads, answering over its Unix socket from a
-   thread: one cold request of 8 proteins, 16 single-protein requests in
-   sequence (idle), then 48 requests of 1–32 proteins (seeded sizes) from 8
-   concurrent clients (load), drawn from phase 7's hit, no-hit and
-   selenoprotein queries. Checks: each response covers its request's ids;
+   search settings and threads; its background warmup (one small batch of
+   each route at bucket 512) is waited for and its launches checked, then
+   it answers over its Unix socket from a thread: one cold request of 8
+   proteins, 16 single-protein requests in sequence (idle), then 48
+   requests of 1–32 proteins (seeded sizes) from 8 concurrent clients
+   (load), drawn from phase 7's hit, no-hit and selenoprotein queries.
+   Checks: each response covers its request's ids;
    hits aligned to their own structure, no random query aligned,
    selenoproteins skipped; scores ≥ 0.1 and sorted; every served protein's
    rows equal run A's ``results.tsv`` rows (scores within one unit of the
@@ -100,10 +108,18 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    the cold latency, idle and loaded p50/p90/p99, proteins/s under load,
    requests coalesced per pass, the engine's share of the passes' time,
    the device's busy share of two load-sized passes under
-   ``torch.profiler``, and peak device memory.
+   ``torch.profiler``, and peak device memory. Then the ``serve`` verb in a
+   fresh process: seconds until its socket accepts (once its warmup has
+   ended), one cold single-protein request at once, 8 idle ones (cold and
+   idle p50 ms, seconds to the cold answer);
+   ``--parent DIR`` adds the same for the checkout at ``DIR`` (its kernels
+   built first), in the order parent, this, this, parent, and in phase 7
+   that checkout's run B before and after this one's.
 9. The ``benchmark`` verb through ``cli.main`` at bucket 512 with
    ``--batches 2`` (its JSON line printed; the card named; 0 < MFU ≤ 1;
-   its launches counted), ``bench_utils``' multi-mode, roofline and CNN
+   its launches counted), ``bench_utils.run_gcn_benchmark(path="dense")``
+   beside it (the dense-cmap API, no kernel launch), ``bench_utils``'
+   multi-mode, roofline and CNN
    measurements at bucket 512, a short spmm matrix (buckets 128 and 512,
    2 forwards a pass) printed beside ``AUTO_SPMM_TABLE`` (a disagreement
    is logged, not fatal), one device-only pass under
@@ -141,6 +157,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import logging
@@ -160,7 +177,7 @@ try:
     from metagenomic_deepfri_tpu_torch import (bench_utils, parity, synthetic,
                                                training)
     from metagenomic_deepfri_tpu_torch.batching.buckets import (
-        assign_bucket, gcn_batch_size)
+        assign_bucket, bucket_plan, gcn_batch_size)
     from metagenomic_deepfri_tpu_torch.batching.engine import (
         BatchedPredictor, ModelHandle, _expand_topk_host, _pad_batch,
         _pad_batch_coords)
@@ -187,6 +204,7 @@ except ModuleNotFoundError as err:
                      f"repo: {err}") from None
 
 
+REPO = Path(__file__).resolve().parent
 SEED = 0
 MODES = {"bp": 3992, "cc": 320, "mf": 489}
 N_PROTEINS = 96
@@ -241,9 +259,12 @@ P8_LOAD_CLIENTS = 8
 P8_LOAD_SIZES = (1, 32)
 P8_TOPK_REQUESTS = 4
 P8_TOPK_SIZE = 16
+P8_FRESH_IDLE = 8
+P8_FRESH_TIMEOUT = 300
 # Phase 9: the benchmark verb and bench_utils.
 P9_BUCKET = 512
 P9_BATCHES = 2
+P9_DENSE_BATCHES = 1
 P9_MATRIX_BUCKETS = (128, 512)
 # Phase 10: several cards (one rank, or one engine replica, a card).
 P10_CATALOGUE = 256
@@ -309,6 +330,55 @@ def launch_counts() -> dict:
             + ranks["contact_degrees"],
             "contact_map": contact.contact_map_fused.launches
             + ranks["contact_map"]}
+
+
+@contextlib.contextmanager
+def watching_warmups():
+    """Inside the block, a record of every ``BatchedPredictor.warmup``
+    call: its engine, its future (None where it started none) and the host
+    clock at its start and at its end."""
+    rec = []
+    real_warmup = BatchedPredictor.warmup
+
+    def warmup(self, *args, **kwargs):
+        entry = {"engine": self, "start": time.perf_counter(), "done": None}
+        entry["future"] = future = real_warmup(self, *args, **kwargs)
+        future.add_done_callback(
+            lambda _: entry.__setitem__("done", time.perf_counter()))
+        rec.append(entry)
+        return future
+
+    BatchedPredictor.warmup = warmup
+    try:
+        yield rec
+    finally:
+        BatchedPredictor.warmup = real_warmup
+
+
+def warmup_report(entry: dict) -> dict:
+    """One watched warmup: its shapes run and skipped (left to real
+    dispatch), its seconds (on its thread) and host clock from the call to
+    the end, and the B1/B2 launches its shapes make."""
+    result = entry["future"].result()
+    deadline = time.monotonic() + 10  # callbacks run after the waiters
+    while entry["done"] is None and time.monotonic() < deadline:
+        time.sleep(0.01)
+    engine = entry["engine"]
+    return {"shapes": result["shapes"], "skipped": result["skipped"],
+            "seconds": result["seconds"],
+            "call_to_end_s": entry["done"] - entry["start"],
+            "launches": gcn_launches(sum(
+                fused_modes(engine, bucket, list(engine.gcn_models))
+                for net, bucket, _ in result["shapes"]
+                if net == "gcn_coords"))}
+
+
+def no_launches() -> dict:
+    return gcn_launches(0)
+
+
+def plus(a: dict, b: dict) -> dict:
+    return {k: a[k] + b[k] for k in a}
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -942,6 +1012,30 @@ def model_set_params(dev, items, seqs):
     return gcn, cnn
 
 
+def dense_cmap_items(dev, items, engine) -> list:
+    """(id, seq, cmap) items: each protein's adjacency from its projected
+    coordinates and insertions as ``engine`` builds it on the card, brought
+    to the host as a bool L × L map."""
+    out = []
+    for qid, seq, proj, ins in items:
+        adj = aligned_contacts_from_coords(
+            torch.from_numpy(proj)[None].to(dev),
+            torch.from_numpy(ins)[None].to(dev),
+            torch.tensor([len(seq)], dtype=torch.int32, device=dev),
+            engine.contact_threshold, engine.generated_contacts)[0]
+        out.append((qid, seq, adj.to(torch.bool).cpu().numpy()))
+    return out
+
+
+def adjacency_bytes(engine, cmap_items) -> list:
+    """The uint8 adjacency bytes (batch · bucket²) of each batch that
+    ``engine.predict_gcn(cmap_items)`` sends to the card."""
+    plan = bucket_plan([len(it[1]) for it in cmap_items], engine.buckets)
+    return [batch * bucket * bucket for bucket in sorted(plan)
+            for _, batch in engine._chunks(
+                bucket, "gcn", [cmap_items[i] for i in plan[bucket]])]
+
+
 def timed(fn):
     """(result, seconds) of ``fn()`` between two synchronisations."""
     torch.cuda.synchronize()
@@ -1043,6 +1137,27 @@ def phase_models(dev, smi, items, weights):
     if not route_diff <= ROUTE_ATOL:
         raise AssertionError("the two GCN routes differ")
 
+    # predict_gcn: the same proteins as dense contact maps (the coordinates
+    # path's own adjacency, as bool), through the shared-trunk step (the
+    # dense engine) and one dense forward per mode (the fused engine never
+    # takes the shared step): torch.bmm on the given uint8 adjacency.
+    cmap_items = dense_cmap_items(dev, items, dense)
+    reset_launch_counts()
+    gcn_multi, _ = timed(lambda: dense.predict_gcn(cmap_items))
+    gcn_per_mode, _ = timed(lambda: fused.predict_gcn(cmap_items))
+    expect_launches(launch_counts(), {k: 0 for k in launches},
+                    "predict_gcn, both routes")
+    for out in (gcn_multi, gcn_per_mode):
+        check_scores(out, items)
+    cmap_diff = {"shared_trunk_vs_coords": max_diff(gcn_multi, dense_out),
+                 "per_mode_vs_coords": max_diff(gcn_per_mode, fused_out)}
+    u8 = adjacency_bytes(dense, cmap_items)
+    log(f"  predict_gcn vs predict_gcn_from_coords: {json.dumps(cmap_diff)}"
+        f" (atol {ROUTE_ATOL}); uint8 adjacency to the card: {len(u8)} "
+        f"batches, {u8} bytes each, {sum(u8)} in all")
+    if not max(cmap_diff.values()) <= ROUTE_ATOL:
+        raise AssertionError("predict_gcn differs from the coordinates path")
+
     reset_launch_counts()
     cnn_out, _ = timed(lambda: fused.predict_cnn(seqs))
     expect_launches(launch_counts(), {k: 0 for k in launches}, "CNN")
@@ -1090,6 +1205,10 @@ def phase_models(dev, smi, items, weights):
         "dense_per_mode": lambda: per_mode(dense),
         "dense_multimode": lambda: run_stream(dense, items)[2],
         "dense_multimode_topk": lambda: run_stream(topk, items)[2],
+        "predict_gcn_multimode": lambda: timed(
+            lambda: dense.predict_gcn(cmap_items))[1],
+        "predict_gcn_per_mode": lambda: timed(
+            lambda: fused.predict_gcn(cmap_items))[1],
         "cnn": lambda: timed(lambda: fused.predict_cnn(seqs))[1]}
     samples = {name: [] for name in passes}
     for _ in range(P6_ROUNDS):
@@ -1296,10 +1415,47 @@ def check_results(out: Path, n_modes: int) -> int:
     return len(rows)
 
 
-def phase_predict(dev, smi, weights: Path, root: Path, device_arg: str):
+def build_checkout(parent: Path) -> None:
+    """The kernels and native libraries of the checkout at ``parent``,
+    built before any of its runs is timed."""
+    subprocess.run(
+        [sys.executable, "-c", "from metagenomic_deepfri_tpu_torch.ops "
+         "import _build; from metagenomic_deepfri_tpu_torch.native "
+         "import build; _build.build_library(); "
+         "[build.build(n) for n in build.NAMES]"],
+        cwd=parent, check=True, timeout=P8_FRESH_TIMEOUT)
+
+
+def inference_gcn_s(log_text: str) -> list:
+    """``inference/gcn``'s seconds from a run's ``[profile]`` log lines."""
+    return [float(ln.rsplit(": ", 1)[1].split("s")[0])
+            for ln in log_text.splitlines()
+            if "[profile] inference/gcn: " in ln]
+
+
+def parent_run_b(parent: Path, argv: list, out: Path, smi) -> None:
+    """Run B's command from the checkout at ``parent`` in a fresh process:
+    its wall seconds and ``inference/gcn``'s, from its log."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "metagenomic_deepfri_tpu_torch.cli", *argv,
+         "-o", str(out), "--skip-matrix"], cwd=parent, capture_output=True,
+        text=True, timeout=P7_RUN_B_TIMEOUT)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:] + proc.stderr[-4000:])
+        raise AssertionError(f"the parent's run B exited {proc.returncode}")
+    log(f"  run B of the parent checkout (fresh process): {secs:.2f} s, "
+        f"inference/gcn {inference_gcn_s(proc.stdout)} s on {smi}")
+    shutil.rmtree(out, ignore_errors=True)
+
+
+def phase_predict(dev, smi, weights: Path, root: Path, device_arg: str,
+                  parent: Path | None = None):
     """Phase 7: ``predict-function`` end to end through the port's command
     line, in this process (run A) and in a subprocess (run B,
-    ``--skip-matrix``). Returns run A's kernel launches."""
+    ``--skip-matrix``); with ``parent``, that checkout's run B before and
+    after this one's. Returns run A's kernel launches."""
     from metagenomic_deepfri_tpu_torch import cli, profiling
     from metagenomic_deepfri_tpu_torch.native import build as native
 
@@ -1372,6 +1528,8 @@ def phase_predict(dev, smi, weights: Path, root: Path, device_arg: str):
         f"{busy:.3f} s of device time, busy share {busy / secs_c:.3f}, "
         f"idle share {1 - busy / secs_c:.3f} on {smi}")
 
+    if parent:
+        parent_run_b(parent, argv, root / "run_b_parent", smi)
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "metagenomic_deepfri_tpu_torch.cli", *argv,
@@ -1385,8 +1543,11 @@ def phase_predict(dev, smi, weights: Path, root: Path, device_arg: str):
         raise AssertionError(f"run B exited {proc.returncode}")
     reruns = [ln for ln in proc.stdout.splitlines() if "Re-running" in ln]
     log(f"  run B (subprocess, --skip-matrix): {secs_b:.2f} s, "
-        f"{n_queries / secs_b:.2f} queries/s end to end on {smi}; "
+        f"{n_queries / secs_b:.2f} queries/s end to end, inference/gcn "
+        f"{inference_gcn_s(proc.stdout)} s on {smi}; "
         f"{reruns[0].split(':: ')[-1] if reruns else 'no dense re-run'}")
+    if parent:
+        parent_run_b(parent, argv, root / "run_b_parent", smi)
 
     # Check 2: every hit aligned to its own source, no no-hit, none dropped.
     _, summary = read_tsv(out_a / "alignment_summary.tsv")
@@ -1502,12 +1663,105 @@ def check_response(req: dict, resp: dict, hits: dict, ref: dict) -> float:
     return worst
 
 
-def phase_serve(dev, smi, weights: Path, root: Path, inputs, device_arg: str):
+def phase_serve(dev, smi, weights: Path, root: Path, inputs, device_arg: str,
+                parent: Path | None = None):
     """Phase 8: the resident annotation server on phase 6's weights and
-    phase 7's structures, over its Unix socket: a cold request, idle single
-    requests, then concurrent load; the served rows held to run A's
-    results.tsv, and a top-k server to the dense one. Returns the B1/B2
-    launches of the phase."""
+    phase 7's structures, over its Unix socket, in this process (its
+    warmup waited for and its launches counted apart; then a cold
+    request, idle single requests, concurrent load; the served rows held
+    to run A's results.tsv, and a top-k server to the dense one), then the
+    ``serve`` verb in a fresh process (the checkout at ``parent`` too,
+    before and after this one's, when given). Returns the B1/B2 launches
+    of the phase."""
+    with watching_warmups() as warm:
+        launches = serve_in_process(dev, smi, weights, root, inputs,
+                                    device_arg, warm)
+    structures, queries_path, hits, threads = inputs
+    checkouts = ([parent, REPO, REPO, parent] if parent else [REPO])
+    for cwd in checkouts:
+        stats = fresh_serve(cwd, weights, structures, queries_path, hits,
+                            threads, device_arg)
+        log(f"  fresh-process serve ({'parent' if cwd == parent else 'this'}"
+            f" checkout): {json.dumps(stats)} on {smi}")
+    return launches
+
+
+def fresh_serve(cwd: Path, weights: Path, structures: Path, queries_path,
+                hits: dict, threads: int, device_arg: str) -> dict:
+    """``python -m metagenomic_deepfri_tpu_torch.cli serve`` from the
+    checkout at ``cwd`` in a fresh process, with run A's search settings:
+    seconds until its socket accepts (a server that warms opens it once
+    its warmup has ended), then one cold single-protein request (a hit
+    query: the GCN path) sent at once, then ``P8_FRESH_IDLE``
+    single-protein requests in sequence; cold and idle milliseconds, the
+    seconds from the start to the cold answer, and the engine's warmup
+    line from its log where it has one."""
+    import socket
+
+    from metagenomic_deepfri_tpu_torch.data.fasta import load_fasta_as_dict
+    from metagenomic_deepfri_tpu_torch.serving import annotate_over_socket
+
+    seqs = load_fasta_as_dict(queries_path)
+    pool = [q for q in seqs if not q.startswith("long")]
+    rng = np.random.default_rng(SEED + 81)
+    cold_id = sorted(hits)[0]
+    sock_dir = Path(tempfile.mkdtemp())  # Unix socket paths are short
+    sock = sock_dir / "s.sock"
+    cmd = [sys.executable, "-m", "metagenomic_deepfri_tpu_torch.cli", "serve",
+           "-w", str(weights), "-d", str(structures), "--socket", str(sock),
+           "--device", device_arg, "-t", str(threads),
+           "--mmseqs-max-evalue", "1e-3", "--mmseqs-min-identity", "0.5",
+           "--mmseqs-min-coverage", "0.9", "--top-k", "5"]
+    for m in MODES:
+        cmd += ["-p", m]
+    log_path = sock_dir / "serve.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(cmd, cwd=cwd, stdout=log_file,
+                                stderr=subprocess.STDOUT)
+    try:
+        while True:  # until the socket accepts a connection
+            if proc.poll() is not None:
+                raise AssertionError(f"serve exited {proc.returncode}:\n"
+                                     f"{log_path.read_text()[-4000:]}")
+            if time.perf_counter() - t0 > P8_FRESH_TIMEOUT:
+                raise AssertionError("the fresh server did not listen")
+            try:
+                with socket.socket(socket.AF_UNIX) as probe:
+                    probe.connect(str(sock))
+                break
+            except (FileNotFoundError, ConnectionRefusedError):
+                time.sleep(0.05)
+        listen_s = time.perf_counter() - t0
+
+        def timed_request(qid):
+            t = time.perf_counter()
+            resp = annotate_over_socket(sock, {qid: seqs[qid]}, timeout=300)
+            if qid not in resp["results"] and qid not in resp["skipped"]:
+                raise AssertionError(f"fresh serve: {qid} missing")
+            return 1e3 * (time.perf_counter() - t)
+
+        cold_ms = timed_request(cold_id)
+        idle_ms = [timed_request(str(q)) for q in
+                   rng.choice(pool, size=P8_FRESH_IDLE, replace=False)]
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+        warm_lines = [ln.split("Engine warm: ", 1)[1] for ln in
+                      log_path.read_text().splitlines()
+                      if "Engine warm: " in ln]
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    return {"listen_s": listen_s, "cold_request_ms": cold_ms,
+            "idle_ms": percentiles(idle_ms),
+            "cold_over_idle_p50": cold_ms / float(np.median(idle_ms)),
+            "first_answer_s": listen_s + cold_ms / 1e3,
+            "warmup": warm_lines[0] if warm_lines else None}
+
+
+def serve_in_process(dev, smi, weights: Path, root: Path, inputs,
+                     device_arg: str, warm: dict) -> dict:
+    """Phase 8's server in this process (``warm``: the record of
+    :func:`watching_warmups` around it)."""
     from metagenomic_deepfri_tpu_torch.data.fasta import load_fasta_as_dict
     from metagenomic_deepfri_tpu_torch.serving import (AnnotationServer,
                                                        annotate_over_socket)
@@ -1541,10 +1795,16 @@ def phase_serve(dev, smi, weights: Path, root: Path, inputs, device_arg: str):
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
     t0 = time.perf_counter()
     srv = AnnotationServer(weights, **kw)
-    log(f"phase 8: server up in {time.perf_counter() - t0:.2f} s "
-        f"({device_arg}, {len(MODES)} modes, {threads} threads)")
+    up_s = time.perf_counter() - t0
+    warm_8 = warmup_report(warm[0]) if warm else {"launches": no_launches()}
+    log(f"phase 8: server up in {up_s:.2f} s ({device_arg}, {len(MODES)} "
+        f"modes, {threads} threads); its warmup, waited for before the "
+        f"first request: {json.dumps(warm_8)} on {smi}")
+    expect_launches(launch_counts(), warm_8["launches"],
+                    "the server's warmup")
     coalesced = []
     real_drain = srv._drain_once
 
@@ -1629,6 +1889,9 @@ def phase_serve(dev, smi, weights: Path, root: Path, inputs, device_arg: str):
                         {t: s for t, s, _ in rows},
                         {t: s for t, s, _ in got["results"][qid]["scores"][
                             mode]}, f"top-k {qid}/{mode}"))
+        # the top-k server's warm launches, once it has ended
+        topk_warm = (warmup_report(warm[1])["launches"] if len(warm) > 1
+                     else no_launches())
     finally:
         BatchedPredictor._run_batch = real_run_batch
         srv.shutdown()
@@ -1641,9 +1904,10 @@ def phase_serve(dev, smi, weights: Path, root: Path, inputs, device_arg: str):
         raise AssertionError("the server thread did not stop")
 
     gcn_modes = sum(gcn_batch_modes)
-    expect_launches(launches, gcn_launches(gcn_modes),
+    expect_launches(launches, plus(gcn_launches(gcn_modes), topk_warm),
                     f"phase 8, {len(gcn_batch_modes)} GCN batches "
-                    f"({gcn_modes} batch-modes on the fused kernels)")
+                    f"({gcn_modes} batch-modes on the fused kernels), and "
+                    f"the top-k server's warmup's {topk_warm}")
     load_ms = [ms for _, ms in load]
     n_load = sum(len(r) for r in load_reqs)
     stats = {
@@ -1665,7 +1929,7 @@ def phase_serve(dev, smi, weights: Path, root: Path, inputs, device_arg: str):
         f"{len(fixed)} requests: max|Δ|={topk_worst:.3g} (overflows re-run "
         f"densely: {topk._dense_engine is not None})")
     log(f"  serving {json.dumps(stats)} on {smi}")
-    return launches
+    return plus(launches, warm_8["launches"])
 
 
 def nw_pairs(seed: int):
@@ -1737,6 +2001,19 @@ def phase_bench(dev, smi, kind: str, root: Path, device_arg: str):
     if line["detail"]["device"] != kind or not (
             line["value"] > 0 and mfu is not None and 0 < mfu <= 1):
         raise AssertionError("benchmark verb: device or MFU out of range")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    dense_line = bench_utils.run_gcn_benchmark(
+        bucket=P9_BUCKET, batches=P9_DENSE_BATCHES, path="dense", device=dev)
+    log(f"  run_gcn_benchmark(path=\"dense\") ({time.perf_counter() - t0:.2f}"
+        f" s) on {smi}, beside the verb's coords line above:")
+    log(dense_line)
+    expect_launches(launch_counts(), {k: 0 for k in launches},
+                    "the dense-cmap benchmark (torch.bmm)")
+    dense_detail = json.loads(dense_line)["detail"]
+    if dense_detail["path"] != "dense" or not json.loads(dense_line)[
+            "value"] > 0:
+        raise AssertionError("the dense-cmap benchmark line")
 
     for name, fn in (
             ("multimode", lambda: bench_utils.run_multimode_benchmark(
@@ -2077,6 +2354,11 @@ def main(argv=None) -> int:
         "--multi-only", action="store_true",
         help="Run phases 1, 2 and 10 only, with phase 10's references "
              "(for a call on several cards).")
+    parser.add_argument(
+        "--parent", type=Path, default=None,
+        help="A checkout of another commit: phases 7 and 8 also run its "
+             "run B and its serve verb in fresh processes, before and after "
+             "this checkout's.")
     args = parser.parse_args(argv)
     # Phase 1: device.
     if not torch.cuda.is_available():
@@ -2170,10 +2452,14 @@ def main(argv=None) -> int:
         weights = root / "weights"
         gcn_h = phase_models(dev, smi, items, weights)
         # Phase 7: predict-function end to end (B1/B2 in every GCN batch).
+        if args.parent:
+            build_checkout(args.parent)
         p7_launches, p7_inputs = phase_predict(dev, smi, weights, root,
-                                               "cuda")
-        # Phase 8: the resident server over its socket (B1/B2 again).
-        p8_launches = phase_serve(dev, smi, weights, root, p7_inputs, "cuda")
+                                               "cuda", args.parent)
+        # Phase 8: the resident server over its socket (B1/B2 again), and
+        # the serve verb in a fresh process.
+        p8_launches = phase_serve(dev, smi, weights, root, p7_inputs, "cuda",
+                                  args.parent)
         # Phase 9: the benchmark verb (its launches), bench_utils, NW.
         p9_launches = phase_bench(dev, smi, kind, root, "cuda")
         # Phase 10: every card: the data-parallel engine, fine-tuning over

@@ -10,7 +10,9 @@ cli.py``) with its flags, names and defaults: ``search-databases``,
 ``serve`` and ``benchmark``, plus the group's ``--debug`` and
 ``--version``. The verbs that run a model (``predict-function``,
 ``finetune``, ``verify-weights``, ``serve``, ``benchmark``) take
-``--device``, which is required: the port never picks a device by itself.
+``--device``, ``cuda`` unless the caller names another (``cpu`` runs on
+the host). Nothing falls back: without the CUDA device asked for, the verb
+exits 1 with an error naming it.
 ``predict-function``, ``serve`` and ``finetune`` also take several,
 comma-separated (``--device cuda:0,cuda:1``): the engine then runs
 data-parallel over them, and fine-tuning one rank a device.
@@ -354,10 +356,32 @@ def cmd_benchmark(args) -> int:
 
 
 def _device_option(p: argparse.ArgumentParser, several: bool = False) -> None:
-    p.add_argument("--device", required=True,
+    p.add_argument("--device", default="cuda",
                    help="Where the models run: cuda, cuda:1, cpu"
                    + ("; or several, comma-separated (cuda:0,cuda:1), to "
-                      "run data-parallel over them." if several else "."))
+                      "run data-parallel over them" if several else "")
+                   + " (default: %(default)s).")
+
+
+def _missing_device(spec: str) -> str | None:
+    """Why ``spec`` (a ``--device`` value) names no usable device, or
+    None."""
+    import torch
+
+    from metagenomic_deepfri_tpu_torch.parallel.launch import device_list
+
+    try:
+        devices = device_list(spec)
+    except (ValueError, RuntimeError) as err:
+        return str(err)
+    if devices[0].type != "cuda":
+        return None
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    missing = [str(d) for d in devices if (d.index or 0) >= n]
+    if missing:
+        return (f"{', '.join(missing)} not found ({n} CUDA devices "
+                f"visible); pass --device cpu to run on the CPU")
+    return None
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -578,6 +602,11 @@ def main(argv=None) -> int:
             logging.getLogger(name).setLevel(
                 logging.DEBUG if args.debug else logging.INFO)
     setup_logging(args.debug)
+    if getattr(args, "device", None) is not None:
+        why = _missing_device(args.device)
+        if why:
+            print(f"Error: --device {args.device}: {why}", file=sys.stderr)
+            return 1
     try:
         return args.func(args)
     except (DownloadError, urllib.error.URLError) as err:

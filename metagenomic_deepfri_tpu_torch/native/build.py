@@ -1,9 +1,10 @@
 """Build the host C++ libraries (NW aligner, k-mer prefilter) at first use.
 
-The sources are the JAX package's ``native/nw.cpp`` and
-``native/kmersearch.cpp``, read by path (reading a file is not an import), so
-both packages run one NW and one prefilter. They are compiled with the JAX
-package's compiler and flags (``g++ -O3 -fopenmp -march=native ...``, the
+The sources are this package's own ``native/nw.cpp`` and
+``native/kmersearch.cpp``, byte-identical copies of the JAX package's (a
+test holds them equal), so both packages run one NW and one prefilter and
+the port needs nothing of the JAX package's tree. They are compiled with the
+JAX package's compiler and flags (``g++ -O3 -fopenmp -march=native ...``, the
 ``g++`` found on ``PATH``, as the JAX package runs it; ``$CXX`` is not read,
 since it may name a compiler without OpenMP) into this package's ``build/``
 directory, never next to the sources.
@@ -32,7 +33,7 @@ import threading
 from pathlib import Path
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE_DIR = _PKG_DIR.parent / "metagenomic_deepfri_tpu" / "native"
+SOURCE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _PKG_DIR / "build"
 
 CXX = "g++"

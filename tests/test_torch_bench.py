@@ -100,6 +100,24 @@ def test_gcn_benchmark_matches_jax(repo_root_untouched):
     assert len(ours["detail"]["elapsed_passes_s"]) == 4
 
 
+def test_gcn_benchmark_dense_path_matches_jax(repo_root_untouched):
+    """``path="dense"`` times ``predict_gcn`` on each protein's dense
+    contact map: the JAX line's keys and workload."""
+    kw = dict(bucket=32, batches=2, n_labels=8, batch_cap=2, path="dense")
+    theirs = json.loads(jax_bench.run_gcn_benchmark(
+        **kw, with_device_loop=False, device_only_cache=None))
+    ours = json.loads(bench_utils.run_gcn_benchmark(**kw, device="cpu"))
+    assert set(theirs["detail"]) <= set(ours["detail"])
+    for key in ("n_proteins", "batch", "edges_per_protein", "path",
+                "flops_per_protein", "bucket", "n_labels", "spmm"):
+        assert ours["detail"][key] == theirs["detail"][key], key
+    assert ours["detail"]["path"] == "dense"
+    assert ours["detail"]["spmm_route"] == "dense"
+    assert ours["value"] > 0 and ours["detail"]["device_only_pps"] > 0
+    with pytest.raises(ValueError, match="path"):
+        bench_utils.run_gcn_benchmark(bucket=32, path="flat", device="cpu")
+
+
 def test_peak_table_and_no_fallback(monkeypatch):
     assert bench_utils.device_peak_bf16_flops("cpu") is None
     if not torch.cuda.is_available():

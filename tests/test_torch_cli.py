@@ -86,15 +86,32 @@ def test_verb_help(verb, capsys):
                  "benchmark"))
 
 
-def test_usage_error_prints_full_help_and_exits_2(tmp_path, capsys):
+def _no_cuda(monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_usage_error_prints_full_help_and_exits_2(tmp_path, capsys,
+                                                  monkeypatch):
+    """A usage error prints the verb's help and exits 2. ``--device``
+    defaults to ``cuda``: without a CUDA device the verb exits 1 with an
+    error naming the device, and runs nothing on the CPU instead."""
+    _no_cuda(monkeypatch)
     (tmp_path / "q.faa").write_text(">a\nMKV\n")
+    argv = ["predict-function", "-i", str(tmp_path / "q.faa"),
+            "-o", str(tmp_path / "out"), "-w", str(tmp_path)]
     with pytest.raises(SystemExit) as exc:
-        cli.main(["predict-function", "-i", str(tmp_path / "q.faa"),
-                  "-o", str(tmp_path / "out"), "-w", str(tmp_path)])
+        cli.main(argv[:-2])
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "--mmseqs-min-coverage" in err and "--save-cmaps" in err
-    assert "error: the following arguments are required: --device" in err
+    assert "error: the following arguments are required: -w" in err
+    assert cli.main(argv) == 1
+    assert "Error: --device cuda: cuda not found (0 CUDA devices visible)" \
+        in capsys.readouterr().err
+    assert cli.main(argv + ["--device", "cuda:0,cuda:1"]) == 1
+    assert "--device cuda:0,cuda:1" in capsys.readouterr().err
     for bad in (["predict-function", "-i", str(tmp_path / "missing.faa")],
                 ["search-databases", "-i", str(tmp_path / "q.faa"), "-o",
                  str(tmp_path / "o"), "-s", "9"],
@@ -239,9 +256,10 @@ def _serve_actions():
     return _verb_actions("serve")
 
 
-def test_serve_parser_matches_jax_verb(tmp_path, capsys):
-    """``serve`` has the JAX verb's options and defaults, plus a required
-    ``--device``."""
+def test_serve_parser_matches_jax_verb(tmp_path, capsys, monkeypatch):
+    """``serve`` has the JAX verb's options and defaults, plus ``--device``
+    (default ``cuda``, an error without one)."""
+    _no_cuda(monkeypatch)
     jax_serve = jax_main.commands["serve"]
     ours = _serve_actions()
     jax_opts = {o: p for p in jax_serve.params for o in p.opts}
@@ -250,13 +268,13 @@ def test_serve_parser_matches_jax_verb(tmp_path, capsys):
     for opt in ("-t", "--top-k", "--mmseqs-max-evalue",
                 "--mmseqs-min-identity", "--mmseqs-min-coverage"):
         assert ours[opt].default == jax_opts[opt].default, opt
-    assert ours["--socket"].required and ours["--device"].required
+    assert ours["--socket"].required and not ours["--device"].required
+    assert ours["--device"].default == "cuda"
     assert ours["-p"].choices == list(jax_opts["-p"].type.choices)
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["serve", "-w", str(tmp_path), "--socket",
-                  str(tmp_path / "s.sock")])
-    assert exc.value.code == 2
-    assert "required: --device" in capsys.readouterr().err
+    assert cli.main(["serve", "-w", str(tmp_path), "--socket",
+                     str(tmp_path / "s.sock")]) == 1
+    assert "Error: --device cuda: cuda not found" in capsys.readouterr().err
+    assert not (tmp_path / "s.sock").exists()
 
 
 def test_serve_verb_round_trip(weights_dir, tmp_path):
@@ -308,9 +326,10 @@ def test_serve_verb_round_trip(weights_dir, tmp_path):
 
 
 def test_benchmark_verb(monkeypatch, capsys):
-    """``benchmark`` has the JAX verb's options and defaults plus a required
-    ``--device``; a tiny run on the CPU prints one JSON line (the engine's
-    batch rule patched to 2 proteins a batch)."""
+    """``benchmark`` has the JAX verb's options and defaults plus
+    ``--device`` (default ``cuda``, an error without one); a tiny run on
+    the CPU prints one JSON line (the engine's batch rule patched to 2
+    proteins a batch)."""
     from metagenomic_deepfri_tpu_torch import bench_utils
 
     jax_opts = {o: p for p in jax_main.commands["benchmark"].params
@@ -320,11 +339,10 @@ def test_benchmark_verb(monkeypatch, capsys):
     assert set(jax_opts) - set(ours) == set()
     for opt in ("--bucket", "--batches", "--n-labels"):
         assert ours[opt].default == jax_opts[opt].default, opt
-    assert ours["--device"].required
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["benchmark", "--bucket", "32"])
-    assert exc.value.code == 2
-    assert "required: --device" in capsys.readouterr().err
+    assert ours["--device"].default == "cuda"
+    _no_cuda(monkeypatch)
+    assert cli.main(["benchmark", "--bucket", "32"]) == 1
+    assert "Error: --device cuda: cuda not found" in capsys.readouterr().err
 
     monkeypatch.setattr(bench_utils, "gcn_batch_size", lambda bucket: 2)
     assert cli.main(["benchmark", "--bucket", "32", "--batches", "2",

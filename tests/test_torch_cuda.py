@@ -457,6 +457,7 @@ def test_server_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     kw = dict(databases=[tmp_path / "structures"], max_eval=1e-3, threads=4)
     ref = AnnotationServer(weights, device="cpu", **kw).annotate(queries)
     srv = AnnotationServer(weights, device="cuda:0", **kw)
+    srv._warmup_future.result(timeout=300)  # its launches before the count
     fused_modes = _fused_modes_per_batch(monkeypatch)
     before = gc.graphconv_aggregate.launches
     got = srv.submit(dict(queries), timeout=300)
@@ -492,6 +493,41 @@ def test_server_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
                     assert (want.get(term) or have.get(term)) <= 0.1 + 1e-4
     assert got["results"]["h0"]["aligned"] and not \
         got["results"]["n0"]["aligned"]
+
+
+def test_predict_gcn_on_card_matches_cpu(cuda):
+    """``predict_gcn`` on the card (the uint8 adjacency from pinned host
+    memory, copied without blocking) gives the CPU engine's rows, on the
+    shared-trunk step and per mode, and launches no kernel of ours."""
+    from metagenomic_deepfri_tpu_torch.bench_utils import make_random_items
+
+    labels = {"bp": 40, "cc": 6, "mf": 9}
+    base = GCNConfig(n_labels=1, lm_hidden=32, lm_layers=1, embed_dim=32,
+                     gc_dims=(32, 32), fc_dims=(32,))
+    trees, shared = {}, None
+    for i, (m, n) in enumerate(labels.items()):
+        trees[m] = gcn_params_to_numpy(init_gcn(
+            dataclasses.replace(base, n_labels=n),
+            torch.Generator().manual_seed(i), "cpu"))
+        shared = shared or trees[m]["lm"]
+        trees[m]["lm"] = shared
+    handles = {m: ModelHandle("gcn", m, dataclasses.replace(
+        base, n_labels=n), trees[m]) for m, n in labels.items()}
+    items = make_random_items(20, 40, 300, seed=8, form="dense")
+    for modes in (list(labels), ["mf"]):
+        want = BatchedPredictor(handles, device="cpu", batch_cap=8
+                                ).predict_gcn(items, modes=modes)
+        engine = BatchedPredictor(handles, device=cuda, batch_cap=8)
+        assert bool(engine._multi_key(modes)) == (len(modes) > 1)
+        before = (gc.graphconv_aggregate.launches,
+                  gc.contact_degrees.launches)
+        got = engine.predict_gcn(items, modes=modes)
+        assert before == (gc.graphconv_aggregate.launches,
+                          gc.contact_degrees.launches)
+        for m in modes:
+            for q in want[m]:
+                np.testing.assert_allclose(got[m][q], want[m][q], rtol=0,
+                                           atol=1e-4)
 
 
 def test_nw_device_matches_host_on_card(cuda):

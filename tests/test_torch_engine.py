@@ -11,6 +11,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -366,3 +367,338 @@ def test_build_failure_raises_with_nvcc_output(tmp_path, monkeypatch):
     with pytest.raises(_build.KernelBuildError, match="no sm_90a"):
         _build.build_library()
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+# ---- predict_gcn: the precomputed-contact-map API ---------------------------
+
+def _cmap_items():
+    """(id, seq, cmap) items over both buckets, the cmaps given as bool,
+    uint8 and 0/1 float32 in turn, and one cmap shorter than its sequence
+    (it fills its own L × L corner)."""
+    from metagenomic_deepfri_tpu_torch.bench_utils import make_random_items
+
+    items = []
+    for i, (qid, seq, cmap) in enumerate(
+            make_random_items(10, 12, 64, seed=5, form="dense")):
+        cmap = np.asarray(cmap) > 0
+        if i == 3:
+            cmap = cmap[:-3, :-3]
+        items.append((qid, seq, cmap.astype((bool, np.uint8,
+                                             np.float32)[i % 3])))
+    return items
+
+
+def _assert_rows(got, want, atol):
+    assert set(got) == set(want)
+    for mode in want:
+        assert set(got[mode]) == set(want[mode])
+        for qid, row in want[mode].items():
+            assert got[mode][qid].dtype == np.float32
+            np.testing.assert_allclose(got[mode][qid], row, rtol=0,
+                                       atol=atol)
+
+
+@pytest.mark.parametrize("shared_lm", [False, True])
+def test_predict_gcn_matches_jax(shared_lm):
+    jax_h, torch_h = _handles(shared_lm)
+    items = _cmap_items()
+    ref = JaxPredictor(gcn_models=jax_h, buckets=BUCKETS, batch_cap=4,
+                       spmm="xla").predict_gcn(items)
+    engine = BatchedPredictor(torch_h, device="cpu", buckets=BUCKETS,
+                              batch_cap=4)
+    assert (engine._multi_key(list(LABELS)) is not None) == shared_lm
+    parts, progress = [], []
+    out = engine.predict_gcn(items, result_cb=parts.append,
+                             progress_cb=progress.append)
+    _assert_rows(out, ref, 1e-5)
+    assert sum(progress) == len(items) and len(parts) == len(progress)
+    assert {q for p in parts for q in p["bp"]} == {it[0] for it in items}
+    got = engine.predict_gcn(items, modes=["cc"])
+    assert set(got) == {"cc"}
+    _assert_rows(got, {"cc": ref["cc"]}, 1e-5)
+
+
+def test_predict_gcn_empty_and_bad_arguments():
+    jax_h, torch_h = _handles(shared_lm=False)
+    engine = BatchedPredictor(torch_h, device="cpu", buckets=BUCKETS)
+    want = JaxPredictor(gcn_models=jax_h, buckets=BUCKETS).predict_gcn([])
+    assert engine.predict_gcn([]) == want == {m: {} for m in LABELS}
+    with pytest.raises(KeyError):
+        engine.predict_gcn([], modes=["ec"])
+
+
+@pytest.mark.parametrize("spmm", ["fused", "dense"])
+def test_predict_gcn_equals_coords_path(spmm):
+    """Given ``aligned_contacts_from_coords``' own adjacency as the cmap,
+    ``predict_gcn`` gives the scores of ``predict_gcn_from_coords``."""
+    from metagenomic_deepfri_tpu_torch.ops.cmap_align import \
+        aligned_contacts_from_coords
+
+    _, torch_h = _handles(shared_lm=False)
+    engine = BatchedPredictor(torch_h, device="cpu", buckets=BUCKETS,
+                              batch_cap=4, spmm=spmm)
+    items = _items()
+    dense = []
+    for qid, seq, proj, ins in items:
+        adj = aligned_contacts_from_coords(
+            torch.from_numpy(proj)[None], torch.from_numpy(ins)[None],
+            torch.tensor([len(seq)], dtype=torch.int32),
+            engine.contact_threshold, engine.generated_contacts)[0]
+        dense.append((qid, seq, adj.numpy()))
+    _assert_rows(engine.predict_gcn(dense),
+                 engine.predict_gcn_from_coords(items), 1e-5)
+
+
+def test_predict_gcn_topk_overflow_as_coords_path():
+    """``score_topk`` with every score above the threshold: the overflow
+    report of ``predict_gcn`` names the ids the coordinates path names."""
+    from metagenomic_deepfri_tpu_torch.ops.cmap_align import \
+        aligned_contacts_from_coords
+
+    _, torch_h = _handles(shared_lm=False)
+    engine = BatchedPredictor(torch_h, device="cpu", buckets=BUCKETS,
+                              batch_cap=4, score_topk=1, score_threshold=0.0)
+    items = _items()
+    dense = [(qid, seq, aligned_contacts_from_coords(
+        torch.from_numpy(p)[None], torch.from_numpy(i)[None],
+        torch.tensor([len(seq)], dtype=torch.int32), 6.0, 2)[0].numpy())
+        for qid, seq, p, i in items]
+    reports = {"gcn": set(), "coords": set()}
+    out = engine.predict_gcn(dense, overflow_cb=lambda m, q: reports[
+        "gcn"].update((m, qid) for qid in q))
+    ref = engine.predict_gcn_from_coords(items, overflow_cb=lambda m, q:
+                                         reports["coords"].update(
+                                             (m, qid) for qid in q))
+    assert reports["gcn"] == reports["coords"] == {
+        (m, it[0]) for m in LABELS for it in items}
+    _assert_rows(out, ref, 1e-5)
+    for mode in LABELS:  # top-1 rows: one score kept, the rest 0.0
+        assert all(np.count_nonzero(r) <= 1 for r in out[mode].values())
+
+
+@pytest.mark.parametrize("shared_lm", [False, True])
+def test_predict_gcn_two_devices_match_one(monkeypatch, shared_lm):
+    _, torch_h = _handles(shared_lm)
+    items = _cmap_items()
+    one = BatchedPredictor(torch_h, device="cpu", buckets=BUCKETS,
+                           batch_cap=4).predict_gcn(items)
+    engine = BatchedPredictor(torch_h, device=["cpu", "cpu"],
+                              buckets=BUCKETS, batch_cap=4)
+    slices = []
+    real_slice = engine._slice_outputs
+
+    def slice_spy(replica, net, arrays, modes, n_real):
+        slices.append((replica, net, tuple(arrays[2].shape), n_real))
+        return real_slice(replica, net, arrays, modes, n_real)
+
+    monkeypatch.setattr(engine, "_slice_outputs", slice_spy)
+    _assert_rows(engine.predict_gcn(items), one, 1e-6)
+    assert {s[1] for s in slices} == {"gcn"}
+    # each replica gets its half of the uint8 adjacency
+    assert all(shape[0] == 2 and shape[1] == shape[2] in BUCKETS
+               for _, _, shape, _ in slices)
+    assert [s[0] for s in slices] == [0, 1] * (len(slices) // 2)
+
+
+# ---- warmup -----------------------------------------------------------------
+
+def _engine_with_cnn(device="cpu", batch_cap=4, dtype="float32",
+                     shared_lm=False):
+    from metagenomic_deepfri_tpu_torch.models.deepfri import (CNNConfig,
+                                                              init_cnn)
+
+    _, torch_h = _handles(shared_lm=shared_lm)
+    for h in torch_h.values():
+        h.config = GCNConfig(**{**h.config.__dict__, "compute_dtype": dtype})
+    cnn = {}
+    for i, (mode, n) in enumerate(LABELS.items()):
+        cfg = CNNConfig(n_labels=n, conv_filters=8, conv_kernels=(3,),
+                        fc_dims=(16,), compute_dtype=dtype)
+        cnn[mode] = ModelHandle("cnn", mode, cfg, init_cnn(
+            cfg, torch.Generator().manual_seed(30 + i), "cpu"))
+    return BatchedPredictor(torch_h, cnn, device=device, buckets=BUCKETS,
+                            batch_cap=batch_cap)
+
+
+def _on_warm_thread() -> bool:
+    return threading.current_thread().name.startswith("engine-warmup")
+
+
+def _spy_routes(monkeypatch, engine):
+    """Every batch the engine enqueues, as (on the warm thread, net,
+    bucket, batch, proteins, the forwards it called in order)."""
+    seen, local = [], threading.local()
+    for name in ("gcn_forward", "gcn_forward_fused", "gcn_forward_multimode",
+                 "cnn_forward"):
+        def forward(*args, _real=getattr(engine_mod, name), _name=name,
+                    **kwargs):
+            local.calls.append(_name)
+            return _real(*args, **kwargs)
+
+        monkeypatch.setattr(engine_mod, name, forward)
+    real = engine._enqueue
+
+    def spy(bucket, chunk, batch, modes, net):
+        local.calls = []
+        out = real(bucket, chunk, batch, modes, net)
+        seen.append((_on_warm_thread(), net, bucket, batch, len(chunk),
+                     tuple(local.calls)))
+        return out
+
+    monkeypatch.setattr(engine, "_enqueue", spy)
+    return seen
+
+
+@pytest.mark.parametrize("device, cap, expected, routes, warm_shapes", [
+    # one dense route per mode on the CPU: one GCN and one CNN batch
+    ("cpu", 4, {32: 5, 64: 9}, "auto",
+     [("gcn_coords", 32, 4), ("cnn", 32, 4)]),
+    # fused at bucket 32, dense at 64: a GCN batch at each
+    ("cpu", 16, {32: 3, 64: 11}, "split",
+     [("gcn_coords", 32, 8), ("gcn_coords", 64, 8), ("cnn", 32, 8)]),
+    # the modes share the LM: one shared-trunk step
+    ("cpu", 4, {64: 2}, "shared", [("gcn_coords", 64, 4), ("cnn", 64, 4)]),
+    # a lone protein's batch, padded to the device count
+    ("cpu,cpu", 5, {32: 1, 64: 12}, "auto",
+     [("gcn_coords", 32, 6), ("cnn", 32, 6)]),
+])
+def test_warmup_plan_is_dispatch(monkeypatch, device, cap, expected, routes,
+                                 warm_shapes):
+    """``warmup(buckets)`` runs one batch of each route (the forwards a
+    batch calls) that ``predict_stream`` (GCN) and ``predict_cnn`` (CNN)
+    then take for a workload at those buckets, no more and no fewer, each
+    at the smallest of those buckets that takes it and at the batch that
+    dispatch gives a lone protein there: never larger than a real batch."""
+    if routes == "split":
+        monkeypatch.setattr(engine_mod, "resolve_spmm",
+                            lambda policy, bucket, dtype, device:
+                            "fused" if bucket == 32 else "dense")
+    engine = _engine_with_cnn(device, cap, shared_lm=routes == "shared")
+    seen = _spy_routes(monkeypatch, engine)
+    report = engine.warmup(expected).result(timeout=120)
+    assert report["shapes"] == warm_shapes and report["skipped"] == []
+    warm = {(net, b, n): calls for w, net, b, n, k, calls in seen if w}
+    assert list(warm) == warm_shapes
+    assert all(k == n for w, _, _, n, k, _ in seen if w)  # every row filled
+    seen.clear()
+    rng = np.random.default_rng(3)
+    gcn_items, cnn_items = [], []
+    for bucket, count in expected.items():
+        lo = 1 if bucket == min(BUCKETS) else bucket // 2 + 1
+        for it in aligned_items(count, seed=int(rng.integers(1 << 30)),
+                                min_len=max(lo, 8), max_len=bucket):
+            gcn_items.append(it)
+            cnn_items.append(it[:2])
+    assert {engine_mod.assign_bucket(len(it[1]), BUCKETS)
+            for it in gcn_items} == set(expected)
+    engine.predict_stream(iter(gcn_items))
+    engine.predict_cnn(cnn_items)
+    assert not any(w for w, *_ in seen)
+    for net in ("gcn_coords", "cnn"):
+        real = [(b, n, calls) for _, nt, b, n, _, calls in seen if nt == net]
+        mine = {(b, n): calls for (nt, b, n), calls in warm.items()
+                if nt == net}
+        assert sorted(set(mine.values())) == sorted({c for *_, c in real})
+        for (b, n), calls in mine.items():
+            assert b == min(bk for bk in expected
+                            if engine._route(net, bk) ==
+                            engine._route(net, b))
+            assert [n] == [x for _, x in engine._chunks(b, net, [None])]
+            assert n <= min(x for _, x, _ in real)
+
+
+def test_warmup_leaves_scores_and_callbacks_alone(monkeypatch):
+    """A finished background warmup changes no score, and no warm id
+    reaches ``result_cb``, ``progress_cb`` or ``overflow_cb``; TF32 stays
+    off (the warm thread never saves and restores the flags)."""
+    from metagenomic_deepfri_tpu_torch import precision
+
+    def forbidden():
+        raise AssertionError("highest_f32_precision() entered")
+
+    monkeypatch.setattr(precision, "highest_f32_precision", forbidden)
+    items = _items()
+    cold = _engine_with_cnn()
+    want = cold.predict_gcn_from_coords(items)
+    want_cnn = cold.predict_cnn([it[:2] for it in items])
+
+    engine = _engine_with_cnn()
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision())
+    assert highest_f32_precision_active()
+    report = engine.warmup({32, 64}).result(timeout=120)
+    assert report["seconds"] > 0 and report["shapes"] == [
+        ("gcn_coords", 32, 4), ("cnn", 32, 4)]
+    assert flags == (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32,
+                     torch.get_float32_matmul_precision())
+    assert highest_f32_precision_active()
+    ids, progress, overflow = set(), [], []
+    got = {m: {} for m in LABELS}
+
+    def on_result(part):
+        for m, rows in part.items():
+            ids.update(rows)
+            got[m].update(rows)
+
+    engine.predict_stream(iter(items), result_cb=on_result,
+                          progress_cb=progress.append,
+                          overflow_cb=lambda m, q: overflow.append(q))
+    got_cnn = engine.predict_cnn([it[:2] for it in items],
+                                 result_cb=lambda part: ids.update(
+                                     q for rows in part.values()
+                                     for q in rows),
+                                 progress_cb=progress.append)
+    assert ids == {it[0] for it in items} and sum(progress) == 2 * len(items)
+    assert not overflow
+    for mode in LABELS:
+        for qid in want[mode]:
+            assert np.array_equal(got[mode][qid], want[mode][qid])
+            assert np.array_equal(got_cnn[mode][qid], want_cnn[mode][qid])
+
+
+def test_real_dispatch_never_waits_for_warmup(monkeypatch):
+    """A real batch runs to its end while a warm batch is held in flight,
+    and no warm batch starts after it: the shapes left are reported as
+    skipped."""
+    engine = _engine_with_cnn()
+    entered, release = threading.Event(), threading.Event()
+    real_slice = engine._slice_outputs
+
+    def gated(*args):
+        if _on_warm_thread() and not entered.is_set():
+            entered.set()
+            assert release.wait(60)
+        return real_slice(*args)
+
+    monkeypatch.setattr(engine, "_slice_outputs", gated)
+    future = engine.warmup({32, 64})
+    assert entered.wait(60)
+    try:
+        out = engine.predict_gcn_from_coords(_items(), modes=["mf"])
+        assert not future.done()  # the warm batch is still held
+    finally:
+        release.set()
+    report = future.result(timeout=60)
+    assert report["shapes"] == [("gcn_coords", 32, 4)]
+    assert report["skipped"] == [("cnn", 32, 4)]
+    assert len(out["mf"]) == 10
+
+
+def test_warmup_failure_surfaces_through_the_future(monkeypatch):
+    engine = _engine_with_cnn()
+    real = engine._enqueue
+
+    def failing(*args):
+        if _on_warm_thread():
+            raise RuntimeError("kernel failed to launch")
+        return real(*args)
+
+    monkeypatch.setattr(engine, "_enqueue", failing)
+    future = engine.warmup({64})
+    assert isinstance(future.exception(timeout=60), RuntimeError)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        future.result()
+    # the engine still answers after a failed warmup
+    assert len(engine.predict_gcn_from_coords(_items())["mf"]) == 10

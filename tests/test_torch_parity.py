@@ -18,6 +18,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -327,6 +328,7 @@ def test_cli_verify_weights(tmp_path, monkeypatch, capsys):
                      "cpu", "--n-proteins", "2", "--trace"]) == 1
     out = capsys.readouterr()
     assert out.out.count("(FAIL)") == 2 and "2/4 models exceed" in out.err
-    with pytest.raises(SystemExit) as missing_device:
-        cli.main(["verify-weights", "-w", str(weights)])
-    assert missing_device.value.code == 2
+    # --device defaults to cuda: without a card, an error naming it
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.main(["verify-weights", "-w", str(weights)]) == 1
+    assert "Error: --device cuda: cuda not found" in capsys.readouterr().err

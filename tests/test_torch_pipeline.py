@@ -441,3 +441,20 @@ def test_predict_requires_device(weights_dir, structure_dir, tmp_path):
         pipeline.predict_protein_function(
             query_file=qf, databases=(), weights=weights_dir,
             output_path=tmp_path / "out", deepfri_processing_modes=["mf"])
+
+
+def test_pipeline_starts_no_warmup(weights_dir, structure_dir, tmp_path,
+                                   monkeypatch):
+    """The pipeline starts no engine warmup, on the CPU nor on a GPU (here:
+    the CPU engine taken for one): on the H100 it slowed a fresh run."""
+    from metagenomic_deepfri_tpu_torch.batching.engine import \
+        BatchedPredictor
+
+    def warmup(self, buckets):
+        raise AssertionError("the pipeline started a warmup")
+
+    monkeypatch.setattr(BatchedPredictor, "warmup", warmup)
+    monkeypatch.setattr(BatchedPredictor, "on_cuda", True)
+    out = run_pipeline("torch", structure_dir, tmp_path / "run", weights_dir,
+                       deepfri_processing_modes=["mf"])
+    assert (out / "results.tsv").exists()

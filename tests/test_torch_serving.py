@@ -22,6 +22,7 @@ import json
 import shutil
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -430,3 +431,91 @@ def test_topk_server_response_identical(tmp_path):
     assert topk._dense_engine is not None  # the overflow regime was hit
     assert len(ref["results"]["q_hit"]["scores"]["mf"]) > 256
     assert_responses_match(jax_dense.annotate(dict(queries)), got)
+
+
+def test_server_warms_request_shapes(setup, monkeypatch):
+    """A server on the CPU starts no warmup. On a GPU (here: the CPU engine
+    taken for one) construction starts its engine's warmup of the routes at
+    bucket 512 (the JAX server's bucket): one GCN batch (every mode on the
+    CPU's dense route) and one CNN batch, each of 8 proteins (a lone
+    protein's batch there)."""
+    from metagenomic_deepfri_tpu_torch.batching.engine import \
+        BatchedPredictor
+
+    assert setup[1]._warmup_future is None
+    monkeypatch.setattr(BatchedPredictor, "on_cuda", True)
+    srv = serving.AnnotationServer(setup[3], databases=[], device="cpu")
+    report = srv._warmup_future.result(timeout=120)
+    # a request that came first takes over the shapes not yet warmed
+    assert report["shapes"] + report["skipped"] == [
+        ("gcn_coords", 512, 8), ("cnn", 512, 8)]
+    assert srv.engine._route("gcn_coords", 512) == ("dense",) * 4
+
+
+def test_server_listens_once_warm(setup, monkeypatch, tmp_path):
+    """``serve_unix`` opens its socket only once the engine's warmup has
+    ended, so that the first request finds a warm engine."""
+    from metagenomic_deepfri_tpu_torch.batching.engine import \
+        BatchedPredictor
+
+    release = threading.Event()
+    real = BatchedPredictor._enqueue
+
+    def held(self, *args):
+        if threading.current_thread().name.startswith("engine-warmup"):
+            assert release.wait(60)
+        return real(self, *args)
+
+    monkeypatch.setattr(BatchedPredictor, "_enqueue", held)
+    monkeypatch.setattr(BatchedPredictor, "on_cuda", True)
+    srv = serving.AnnotationServer(setup[3], databases=[],
+                                   processing_modes=["mf"], device="cpu")
+    sock_dir = tempfile.mkdtemp()  # Unix socket paths are short
+    sock = Path(sock_dir) / "s.sock"
+    ready = threading.Event()
+    thread = threading.Thread(target=srv.serve_unix, args=(sock, ready),
+                              daemon=True)
+    thread.start()
+    try:
+        assert not ready.wait(0.5) and not sock.exists()
+        release.set()
+        assert ready.wait(60) and srv._warmup_future.done()
+        out = serving.annotate_over_socket(sock, {"q": _rand_seq(40)})
+        assert out["results"]["q"]["network"] == "cnn"
+    finally:
+        release.set()
+        srv.shutdown()
+        thread.join(30)
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    assert not thread.is_alive()
+
+
+def test_server_logs_a_failed_warmup(setup, monkeypatch, caplog):
+    """A warmup that raises is logged as a warning by the future's
+    callback; the server answers all the same."""
+    import logging
+
+    from metagenomic_deepfri_tpu_torch.batching.engine import \
+        BatchedPredictor
+
+    real = BatchedPredictor._enqueue
+
+    def failing(self, *args):
+        if threading.current_thread().name.startswith("engine-warmup"):
+            raise RuntimeError("no kernel image for this device")
+        return real(self, *args)
+
+    monkeypatch.setattr(BatchedPredictor, "_enqueue", failing)
+    monkeypatch.setattr(BatchedPredictor, "on_cuda", True)
+    caplog.set_level(logging.WARNING)
+    srv = serving.AnnotationServer(setup[3], databases=[],
+                                   processing_modes=["mf"], device="cpu")
+    assert isinstance(srv._warmup_future.exception(timeout=60),
+                      RuntimeError)
+    deadline = time.monotonic() + 30  # the callback runs after the waiters
+    while "Background engine warmup failed" not in caplog.text:
+        assert time.monotonic() < deadline, caplog.text
+        time.sleep(0.05)
+    assert "no kernel image" in caplog.text
+    out = srv.annotate({"q": _rand_seq(40)})
+    assert out["results"]["q"]["network"] == "cnn"
