@@ -54,6 +54,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from metagenomic_deepfri_tpu_torch import profiling
 from metagenomic_deepfri_tpu_torch.batching.buckets import (DEFAULT_BUCKETS,
                                                             assign_bucket,
                                                             bucket_plan,
@@ -244,6 +245,19 @@ def _pad_batch_dense(items: List[tuple], bucket: int, batch: int,
         L = cmap.shape[0]
         host[i, :L, :L] = cmap.astype(np.uint8)
     return tokens, lengths, adj
+
+
+def _timed(items, waited: list):
+    """Yield ``items``, adding to ``waited[0]`` the seconds each ``next``
+    blocked in the iterator (its end included)."""
+    it = iter(items)
+    while True:
+        t0 = time.perf_counter()
+        item = next(it, waited)
+        waited[0] += time.perf_counter() - t0
+        if item is waited:
+            return
+        yield item
 
 
 def _warm_items(net: str, bucket: int, batch: int) -> list:
@@ -441,7 +455,9 @@ class BatchedPredictor:
         key = self._multi_key(modes)
         if key:
             shared, per_mode, configs = rep.gcn_shared
-            adj = aligned_contacts_from_coords(coords, ins, lengths, thr, gen)
+            with profiling.device_span("model/graph", rep.device):
+                adj = aligned_contacts_from_coords(coords, ins, lengths, thr,
+                                                   gen)
             return gcn_forward_multimode(
                 shared, {m: per_mode[m] for m in key},
                 {m: configs[m] for m in key}, tokens, adj, lengths)
@@ -453,8 +469,9 @@ class BatchedPredictor:
                                            coords, ins, lengths, thr, gen)
                 continue
             if adj is None:
-                adj = aligned_contacts_from_coords(coords, ins, lengths, thr,
-                                                   gen)
+                with profiling.device_span("model/graph", rep.device):
+                    adj = aligned_contacts_from_coords(coords, ins, lengths,
+                                                       thr, gen)
             out[m] = gcn_forward(rep.gcn_params[m], cfg, tokens, adj,
                                  lengths)
         return out
@@ -467,7 +484,8 @@ class BatchedPredictor:
         there, then one shared-trunk step or one dense forward per mode
         (the JAX engine's ``_gcn_multi_dense_step`` / ``_gcn_step``)."""
         rep = self._replicas[replica]
-        adj = adj_u8.to(torch.float32)
+        with profiling.device_span("model/graph", rep.device):
+            adj = adj_u8.to(torch.float32)
         key = self._multi_key(modes)
         if key:
             shared, per_mode, configs = rep.gcn_shared
@@ -518,8 +536,9 @@ class BatchedPredictor:
         k = self.score_topk
         if not k or n_labels <= 2 * k:
             return scores
-        vals, idx = torch.topk(scores, k, dim=-1, sorted=True)
-        return vals, idx.to(torch.int32)
+        with profiling.device_span("model/head", scores.device):
+            vals, idx = torch.topk(scores, k, dim=-1, sorted=True)
+            return vals, idx.to(torch.int32)
 
     def _expand_mode_outputs(self, mode: str, outputs: list, chunk_items,
                              net: str, overflow_cb=None) -> list:
@@ -559,13 +578,14 @@ class BatchedPredictor:
         if batch % n_dev:
             raise ValueError(f"batch {batch} does not split over {n_dev} "
                              "devices")
-        if net == "cnn":
-            arrays = _pad_batch(chunk, bucket, batch)
-        elif net == "gcn":
-            arrays = _pad_batch_dense(chunk, bucket, batch,
-                                      pin=self.device.type == "cuda")
-        else:
-            arrays = _pad_batch_coords(chunk, bucket, batch)
+        with profiling.span("engine/pack"):
+            if net == "cnn":
+                arrays = _pad_batch(chunk, bucket, batch)
+            elif net == "gcn":
+                arrays = _pad_batch_dense(chunk, bucket, batch,
+                                          pin=self.device.type == "cuda")
+            else:
+                arrays = _pad_batch_coords(chunk, bucket, batch)
         per = batch // n_dev
         return [self._slice_outputs(
             r, net, tuple(a[r * per:(r + 1) * per] for a in arrays), modes,
@@ -575,15 +595,48 @@ class BatchedPredictor:
                    net: str = "gcn_coords", overflow_cb=None) -> dict:
         """Pad ``chunk`` to (batch, bucket), run every mode on one equal
         contiguous slice a device (all enqueued before the first fetch),
-        fetch the scores in row order."""
+        fetch the scores in row order. While spans are recorded, the fetch
+        (``engine/unpack``) starts once the devices have finished, so that
+        its span holds the host's work alone."""
         self._dispatched += 1
         parts = self._enqueue(bucket, chunk, batch, modes, net)
-        emit = {}
-        for m in modes:
-            host = np.concatenate(self._expand_mode_outputs(
-                m, [p[m] for p in parts], chunk, net, overflow_cb))
-            emit[m] = {item[0]: host[i].copy() for i, item in enumerate(chunk)}
+        if profiling.recording():
+            self._wait_for_devices()
+        with profiling.span("engine/unpack"):
+            emit = {}
+            for m in modes:
+                host = np.concatenate(self._expand_mode_outputs(
+                    m, [p[m] for p in parts], chunk, net, overflow_cb))
+                emit[m] = {item[0]: host[i].copy()
+                           for i, item in enumerate(chunk)}
         return emit
+
+    def _wait_for_devices(self) -> None:
+        """Wait for an event recorded on each CUDA device's current stream
+        after everything enqueued there."""
+        for rep in self._replicas:
+            if rep.device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(rep.device))
+                done.synchronize()
+
+    def _dispatch(self, bucket: int, chunk: list, batch: int, modes: list,
+                  net: str, overflow_cb, emit, input_wait_s=None) -> None:
+        """One batch under the span ``engine/batch`` (its sequence number,
+        ``rows``, ``residues``, ``slots`` and the ``input_wait_s`` given):
+        :meth:`_run_batch`, then ``emit(part, len(chunk))`` under
+        ``engine/emit``."""
+        with profiling.span("engine/batch", batch=self._dispatched + 1):
+            if profiling.recording():
+                profiling.count(rows=len(chunk),
+                                residues=sum(len(it[1]) for it in chunk),
+                                slots=batch * bucket)
+                if input_wait_s is not None:
+                    profiling.count(input_wait_s=input_wait_s)
+            part = self._run_batch(bucket, chunk, batch, modes, net,
+                                   overflow_cb)
+            with profiling.span("engine/emit"):
+                emit(part, len(chunk))
 
     # -- public API ------------------------------------------------------------
 
@@ -671,18 +724,21 @@ class BatchedPredictor:
         :meth:`_chunks`' batches, in bucket order; each batch's part goes to
         ``result_cb``, its size to ``progress_cb``."""
         out: Dict[str, Dict[str, np.ndarray]] = {m: {} for m in modes}
+
+        def emit(part, n):
+            for m in modes:
+                out[m].update(part[m])
+            if result_cb:
+                result_cb(part)
+            if progress_cb:
+                progress_cb(n)
+
         with torch.inference_mode():
             for bucket in sorted(plan):
                 bucket_items = [items[i] for i in plan[bucket]]
                 for chunk, batch in self._chunks(bucket, net, bucket_items):
-                    part = self._run_batch(bucket, chunk, batch, modes, net,
-                                           overflow_cb)
-                    for m in modes:
-                        out[m].update(part[m])
-                    if result_cb:
-                        result_cb(part)
-                    if progress_cb:
-                        progress_cb(len(chunk))
+                    self._dispatch(bucket, chunk, batch, modes, net,
+                                   overflow_cb, emit)
         return out
 
     # -- warmup ---------------------------------------------------------------
@@ -777,6 +833,12 @@ class BatchedPredictor:
         Each batch's ``{mode: {id: scores}}`` goes to ``result_cb``, its size
         to ``progress_cb``, and its overflowed ids (``score_topk``) to
         ``overflow_cb(mode, ids)``. Returns the number of proteins processed.
+
+        When spans are recorded at the call's entry, the seconds spent
+        blocked in ``items_iter`` are counted too: each item's wait goes to
+        the batch that item joins (the wait for the iterator's end to the
+        first batch flushed after it), as that ``engine/batch`` span's
+        ``input_wait_s``.
         """
         if net not in _STREAM_NETS:
             raise ValueError(f"streaming supports {_STREAM_NETS}, got "
@@ -784,15 +846,27 @@ class BatchedPredictor:
         modes = self._modes(net, modes)
         processed = 0
 
-        def dispatch(bucket, chunk, batch):
+        def emit(part, n):
             nonlocal processed
-            emit = self._run_batch(bucket, chunk, batch, modes, net,
-                                   overflow_cb)
-            processed += len(chunk)
+            processed += n
             if result_cb:
-                result_cb(emit)
+                result_cb(part)
             if progress_cb:
-                progress_cb(len(chunk))
+                progress_cb(n)
+
+        waited = [0.0] if profiling.recording() else None
+        if waited is not None:
+            items_iter = _timed(items_iter, waited)
+        bucket_wait: Dict[int, float] = {}
+
+        def take_wait(bucket):
+            """The wait of the items buffered in ``bucket``, with what the
+            iterator has blocked since its last item was counted."""
+            if waited is None:
+                return None
+            wait = bucket_wait.pop(bucket, 0.0) + waited[0]
+            waited[0] = 0.0
+            return wait
 
         buffers: Dict[int, list] = {}
         with torch.inference_mode():
@@ -800,11 +874,15 @@ class BatchedPredictor:
                 bucket = assign_bucket(len(item[1]), self.buckets)
                 buf = buffers.setdefault(bucket, [])
                 buf.append(item)
+                if waited is not None:
+                    bucket_wait[bucket] = take_wait(bucket)
                 steady = self._steady_batch(bucket, net)
                 if len(buf) >= steady:
-                    dispatch(bucket, buf, self._padded(steady))
+                    self._dispatch(bucket, buf, self._padded(steady), modes,
+                                   net, overflow_cb, emit, take_wait(bucket))
                     buffers[bucket] = []
             for bucket in sorted(buffers):
                 for chunk, batch in self._chunks(bucket, net, buffers[bucket]):
-                    dispatch(bucket, chunk, batch)
+                    self._dispatch(bucket, chunk, batch, modes, net,
+                                   overflow_cb, emit, take_wait(bucket))
         return processed

@@ -211,7 +211,16 @@ def cmd_search_databases(args) -> int:
 
 
 def cmd_predict_function(args) -> int:
-    """Predict protein function from sequence (full pipeline)."""
+    """Predict protein function from sequence (full pipeline), under
+    :func:`..profiling.torch_trace` (a trace when ``MDEEPFRI_TPU_TRACE_DIR``
+    is set)."""
+    from metagenomic_deepfri_tpu_torch.profiling import torch_trace
+
+    with torch_trace():
+        return _predict_function(args)
+
+
+def _predict_function(args) -> int:
     from metagenomic_deepfri_tpu_torch.pipeline import (
         hierarchical_database_search, predict_protein_function)
 
@@ -326,8 +335,11 @@ def cmd_serve(args) -> int:
     Models stay on the device and databases stay indexed between requests:
     the serving counterpart of ``predict-function``. One JSON object a
     line, ``{"proteins": {id: sequence, ...}}`` in, ``{"results": ...,
-    "skipped": ...}`` out.
+    "skipped": ...}`` out. With ``MDEEPFRI_TPU_TRACE_DIR`` set, the whole
+    session is traced (:func:`..profiling.torch_trace`; the trace is
+    written when the server stops).
     """
+    from metagenomic_deepfri_tpu_torch.profiling import torch_trace
     from metagenomic_deepfri_tpu_torch.serving import AnnotationServer
 
     server = AnnotationServer(
@@ -341,7 +353,8 @@ def cmd_serve(args) -> int:
         threads=args.threads,
         obo_path=args.obo,
         device=args.device)
-    server.serve_unix(args.socket)
+    with torch_trace():
+        server.serve_unix(args.socket)
     return 0
 
 

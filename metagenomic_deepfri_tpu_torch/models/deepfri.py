@@ -37,6 +37,7 @@ from metagenomic_deepfri_tpu_torch.ops.graphconv import normalized_aggregate
 from metagenomic_deepfri_tpu_torch.ops.one_hot import (VOCAB_SIZE,
                                                        seq2tokens,
                                                        tokens2onehot)
+from metagenomic_deepfri_tpu_torch.profiling import device_span
 
 # float64 is not a serving dtype: it is the reference precision that float32
 # training is checked against (dense path only; the kernels are float32).
@@ -227,13 +228,16 @@ def _merge_embeddings(lm_embed: dict, aa_embed: dict, lm_out: torch.Tensor,
 
 def _embed(params: dict, config: GCNConfig, tokens: torch.Tensor,
            lengths: torch.Tensor):
-    """One-hot → LSTM-LM + residue embedding → (x in compute dtype, valid)."""
+    """One-hot → LSTM-LM + residue embedding → (x in compute dtype, valid),
+    under the device span ``model/lm``."""
     dtype = compute_dtype_of(config)
-    onehot, valid = _masked_onehot(tokens, lengths, accumulate_dtype(dtype))
-    lm_out = lstm_stack_forward(params["lm"], onehot, lengths,
-                                compute_dtype=dtype)
-    x = _merge_embeddings(params["lm_embed"], params["aa_embed"], lm_out,
-                          onehot, dtype)
+    with device_span("model/lm", tokens.device):
+        onehot, valid = _masked_onehot(tokens, lengths,
+                                       accumulate_dtype(dtype))
+        lm_out = lstm_stack_forward(params["lm"], onehot, lengths,
+                                    compute_dtype=dtype)
+        x = _merge_embeddings(params["lm_embed"], params["aa_embed"], lm_out,
+                              onehot, dtype)
     return x, valid
 
 
@@ -279,20 +283,26 @@ def _graphconv_stack(layers: list, adj: torch.Tensor, x: torch.Tensor,
 
 
 def _gcn_trunk(params: dict, config: GCNConfig, tokens: torch.Tensor,
-               adjacency: torch.Tensor, lengths: torch.Tensor,
-               stages: dict | None = None) -> torch.Tensor:
+               adjacency: torch.Tensor, lengths: torch.Tensor, finish,
+               stages: dict | None = None):
     """Dense-adjacency trunk: one-hot → LM branch → GraphConv stack → pooled
-    FC features (B, fc_dims[-1]), shared by :func:`gcn_forward`,
-    :func:`gcn_forward_logits` and :func:`gcn_forward_stages`. ``stages``
-    (if given) collects the named intermediates."""
+    FC features (B, fc_dims[-1]) → ``finish(features)``, shared by
+    :func:`gcn_forward`, :func:`gcn_forward_logits` and
+    :func:`gcn_forward_stages`, under the device spans ``model/lm``,
+    ``model/graph`` (normalisation and GraphConv stack) and ``model/head``
+    (pool, FC stack, ``finish``). ``stages`` (if given) collects the named
+    intermediates."""
     dtype = compute_dtype_of(config)
     x, valid = _embed(params, config, tokens, lengths)
     if stages is not None:
         stages["embed"] = x
-    adj = normalize_adjacency(adjacency.to(accumulate_dtype(dtype)),
-                              config.adj_norm).to(dtype)
-    gc_outputs = _graphconv_stack(params["gc"], adj, x, dtype, stages)
-    return _pooled_fc(params, config, gc_outputs, valid, lengths, stages)
+    with device_span("model/graph", tokens.device):
+        adj = normalize_adjacency(adjacency.to(accumulate_dtype(dtype)),
+                                  config.adj_norm).to(dtype)
+        gc_outputs = _graphconv_stack(params["gc"], adj, x, dtype, stages)
+    with device_span("model/head", tokens.device):
+        return finish(_pooled_fc(params, config, gc_outputs, valid, lengths,
+                                 stages))
 
 
 def gcn_forward(params: dict, config: GCNConfig, tokens: torch.Tensor,
@@ -309,8 +319,9 @@ def gcn_forward(params: dict, config: GCNConfig, tokens: torch.Tensor,
         (B, n_labels) float32 per-term scores in [0, 1] (float64 for float64
         compute).
     """
-    pooled = _gcn_trunk(params, config, tokens, adjacency, lengths)
-    return _head_scores(params["head"], pooled, config.n_labels)
+    return _gcn_trunk(params, config, tokens, adjacency, lengths,
+                      lambda pooled: _head_scores(params["head"], pooled,
+                                                  config.n_labels))
 
 
 def gcn_forward_logits(params: dict, config: GCNConfig, tokens: torch.Tensor,
@@ -321,8 +332,9 @@ def gcn_forward_logits(params: dict, config: GCNConfig, tokens: torch.Tensor,
     Training entry point: the fine-tuning loss needs raw logits, not the
     class-0 probabilities of the inference contract.
     """
-    pooled = _gcn_trunk(params, config, tokens, adjacency, lengths)
-    return _logits(params["head"], pooled, config.n_labels)
+    return _gcn_trunk(params, config, tokens, adjacency, lengths,
+                      lambda pooled: _logits(params["head"], pooled,
+                                             config.n_labels))
 
 
 def _stages_head(params: dict, n_labels: int, pooled: torch.Tensor,
@@ -343,8 +355,9 @@ def gcn_forward_stages(params: dict, config: GCNConfig, tokens: torch.Tensor,
     graph can be pinned to its first stage.
     """
     stages: dict = {}
-    pooled = _gcn_trunk(params, config, tokens, adjacency, lengths, stages)
-    return _stages_head(params, config.n_labels, pooled, stages)
+    return _gcn_trunk(params, config, tokens, adjacency, lengths,
+                      lambda pooled: _stages_head(params, config.n_labels,
+                                                  pooled, stages), stages)
 
 
 def gcn_forward_multimode(shared: dict, per_mode: dict, configs: dict,
@@ -372,30 +385,39 @@ def gcn_forward_multimode(shared: dict, per_mode: dict, configs: dict,
     cfg0 = next(iter(configs.values()))
     dtype = compute_dtype_of(cfg0)
     acc = accumulate_dtype(dtype)
-    onehot, valid = _masked_onehot(tokens, lengths, acc)
-    adj = normalize_adjacency(adjacency.to(acc), cfg0.adj_norm).to(dtype)
+    dev = tokens.device
+    with device_span("model/graph", dev):
+        adj = normalize_adjacency(adjacency.to(acc), cfg0.adj_norm).to(dtype)
 
-    lm_shared = (lstm_stack_forward(shared["lm"], onehot, lengths,
-                                    compute_dtype=dtype)
-                 if "lm" in shared else None)
-    x_shared = None
-    if lm_shared is not None and "lm_embed" in shared and "aa_embed" in shared:
-        x_shared = _merge_embeddings(shared["lm_embed"], shared["aa_embed"],
-                                     lm_shared, onehot, dtype)
+    with device_span("model/lm", dev):
+        onehot, valid = _masked_onehot(tokens, lengths, acc)
+        lm_shared = (lstm_stack_forward(shared["lm"], onehot, lengths,
+                                        compute_dtype=dtype)
+                     if "lm" in shared else None)
+        x_shared = None
+        if (lm_shared is not None and "lm_embed" in shared
+                and "aa_embed" in shared):
+            x_shared = _merge_embeddings(shared["lm_embed"],
+                                         shared["aa_embed"], lm_shared,
+                                         onehot, dtype)
     out = {}
     for mode, p in per_mode.items():
         cfg = configs[mode]
         x = x_shared
         if x is None:
-            lm_out = (lm_shared if lm_shared is not None
-                      else lstm_stack_forward(p["lm"], onehot, lengths,
-                                              compute_dtype=dtype))
-            x = _merge_embeddings(shared.get("lm_embed", p.get("lm_embed")),
-                                  shared.get("aa_embed", p.get("aa_embed")),
-                                  lm_out, onehot, dtype)
-        gc_outputs = _graphconv_stack(p["gc"], adj, x, dtype)
-        pooled = _pooled_fc(p, cfg, gc_outputs, valid, lengths)
-        out[mode] = _head_scores(p["head"], pooled, cfg.n_labels)
+            with device_span("model/lm", dev):
+                lm_out = (lm_shared if lm_shared is not None
+                          else lstm_stack_forward(p["lm"], onehot, lengths,
+                                                  compute_dtype=dtype))
+                x = _merge_embeddings(
+                    shared.get("lm_embed", p.get("lm_embed")),
+                    shared.get("aa_embed", p.get("aa_embed")), lm_out,
+                    onehot, dtype)
+        with device_span("model/graph", dev):
+            gc_outputs = _graphconv_stack(p["gc"], adj, x, dtype)
+        with device_span("model/head", dev):
+            pooled = _pooled_fc(p, cfg, gc_outputs, valid, lengths)
+            out[mode] = _head_scores(p["head"], pooled, cfg.n_labels)
     return out
 
 
@@ -415,16 +437,18 @@ def gcn_forward_fused(params: dict, config: GCNConfig, tokens: torch.Tensor,
     x, valid = _embed(params, config, tokens, lengths)
     degrees = None
     gc_outputs = []
-    for layer in params["gc"]:
-        agg, degrees = normalized_aggregate(
-            proj_coords, ins_mask, lengths, x.to(torch.float32),
-            threshold=threshold, generated_contacts=generated_contacts,
-            adj_norm=config.adj_norm, degrees=degrees,
-            compute_dtype=config.compute_dtype)
-        x = graphconv_apply(layer, agg.to(dtype), dtype)
-        gc_outputs.append(x)
-    pooled = _pooled_fc(params, config, gc_outputs, valid, lengths)
-    return _head_scores(params["head"], pooled, config.n_labels)
+    with device_span("model/graph", tokens.device):
+        for layer in params["gc"]:
+            agg, degrees = normalized_aggregate(
+                proj_coords, ins_mask, lengths, x.to(torch.float32),
+                threshold=threshold, generated_contacts=generated_contacts,
+                adj_norm=config.adj_norm, degrees=degrees,
+                compute_dtype=config.compute_dtype)
+            x = graphconv_apply(layer, agg.to(dtype), dtype)
+            gc_outputs.append(x)
+    with device_span("model/head", tokens.device):
+        pooled = _pooled_fc(params, config, gc_outputs, valid, lengths)
+        return _head_scores(params["head"], pooled, config.n_labels)
 
 
 def same_padding(width: int) -> Tuple[int, int]:

@@ -37,6 +37,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from metagenomic_deepfri_tpu_torch import profiling
 from metagenomic_deepfri_tpu_torch.align.matrices import ScoringMatrix
 from metagenomic_deepfri_tpu_torch.native import build as native
 from metagenomic_deepfri_tpu_torch.ops.nw import nw_align, nw_score_many
@@ -83,31 +84,37 @@ def builtin_search(queries: Dict[str, str],
                    threads: int = 1,
                    query_fasta: Optional[str] = None,
                    database: Optional[str] = None) -> SearchResults:
-    """Search ``queries`` against ``targets``; returns a SearchResults table."""
+    """Search ``queries`` against ``targets``; returns a SearchResults table.
+
+    While spans are recorded: one ``kmer/prefilter`` for the prefilter of
+    every query, then for each query with candidates ``nw/rescore`` (their
+    NW scores) and ``nw/traceback`` (the alignments of its top hits, counter
+    ``alignments``)."""
     q_ids = list(queries)
     t_ids = list(targets)
     if not q_ids or not t_ids:
         return SearchResults([], query_fasta, database)
 
-    q_enc = [_encode20(queries[q]) for q in q_ids]
-    t_enc = [_encode20(targets[t]) for t in t_ids]
-    q_cat, q_off = _concat(q_enc)
-    t_cat, t_off = _concat(t_enc)
-
-    cand = np.full((len(q_ids), max_candidates), -1, np.int32)
-    counts = np.zeros((len(q_ids), max_candidates), np.int32)
     lib = native.load("kmersearch")
-    lib.kmer_candidates(
-        t_cat.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        t_off.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        len(t_ids),
-        q_cat.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        q_off.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        len(q_ids),
-        _KMER, len(_PREFILTER_ALPHABET), max_candidates, min_kmer_hits,
-        threads,
-        cand.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    with profiling.span("kmer/prefilter"):
+        q_enc = [_encode20(queries[q]) for q in q_ids]
+        t_enc = [_encode20(targets[t]) for t in t_ids]
+        q_cat, q_off = _concat(q_enc)
+        t_cat, t_off = _concat(t_enc)
+
+        cand = np.full((len(q_ids), max_candidates), -1, np.int32)
+        counts = np.zeros((len(q_ids), max_candidates), np.int32)
+        lib.kmer_candidates(
+            t_cat.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            t_off.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            len(t_ids),
+            q_cat.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            q_off.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            len(q_ids),
+            _KMER, len(_PREFILTER_ALPHABET), max_candidates, min_kmer_hits,
+            threads,
+            cand.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
 
     scoring = ScoringMatrix.from_name("BLOSUM62")
     db_residues = float(sum(len(s) for s in targets.values()))
@@ -118,31 +125,34 @@ def builtin_search(queries: Dict[str, str],
             continue
         qseq = queries[qid].upper()
         cand_seqs = [targets[t_ids[c]].upper() for c in cand_ids]
-        scores = nw_score_many(qseq, cand_seqs, scoring, gap_open, gap_extend,
-                               threads=threads)
+        with profiling.span("nw/rescore"):
+            scores = nw_score_many(qseq, cand_seqs, scoring, gap_open,
+                                   gap_extend, threads=threads)
         order = np.argsort(scores)[::-1][:top_hits]
-        for rank in order:
-            tid = t_ids[cand_ids[int(rank)]]
-            tseq = cand_seqs[int(rank)]
-            score, aln = nw_align(qseq, tseq, scoring, gap_open, gap_extend)
-            bits = (KA_LAMBDA * score - math.log(KA_K)) / math.log(2.0)
-            evalue = len(qseq) * db_residues * math.pow(2.0, -bits) \
-                if bits > 0 else float("inf")
-            if evalue > max_eval:
-                continue
-            ident, qcov, tcov = alignment_stats(qseq, tseq, aln)
-            matches = round(ident * len(aln))
-            gapopens = _count_gap_opens(aln)
-            mismatches = sum(1 for a in aln if a == "M") - matches
-            rows.append({
-                "query": qid, "target": tid, "fident": round(ident, 4),
-                "alnlen": len(aln), "mismatch": mismatches,
-                "gapopen": gapopens,
-                "qstart": 1, "qend": len(qseq),
-                "tstart": 1, "tend": len(tseq),
-                "qcov": round(qcov, 4), "tcov": round(tcov, 4),
-                "evalue": evalue, "bits": round(bits, 1),
-            })
+        with profiling.span("nw/traceback", alignments=len(order)):
+            for rank in order:
+                tid = t_ids[cand_ids[int(rank)]]
+                tseq = cand_seqs[int(rank)]
+                score, aln = nw_align(qseq, tseq, scoring, gap_open,
+                                      gap_extend)
+                bits = (KA_LAMBDA * score - math.log(KA_K)) / math.log(2.0)
+                evalue = len(qseq) * db_residues * math.pow(2.0, -bits) \
+                    if bits > 0 else float("inf")
+                if evalue > max_eval:
+                    continue
+                ident, qcov, tcov = alignment_stats(qseq, tseq, aln)
+                matches = round(ident * len(aln))
+                gapopens = _count_gap_opens(aln)
+                mismatches = sum(1 for a in aln if a == "M") - matches
+                rows.append({
+                    "query": qid, "target": tid, "fident": round(ident, 4),
+                    "alnlen": len(aln), "mismatch": mismatches,
+                    "gapopen": gapopens,
+                    "qstart": 1, "qend": len(qseq),
+                    "tstart": 1, "tend": len(tseq),
+                    "qcov": round(qcov, 4), "tcov": round(tcov, 4),
+                    "evalue": evalue, "bits": round(bits, 1),
+                })
     return SearchResults(rows, query_fasta, database)
 
 

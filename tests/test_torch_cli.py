@@ -152,6 +152,34 @@ def test_predict_function_cli_equals_functions(weights_dir, tmp_path):
             name
 
 
+def test_predict_function_trace_dir(weights_dir, tmp_path, monkeypatch):
+    """With ``MDEEPFRI_TPU_TRACE_DIR`` set, ``predict-function`` runs under
+    the profiler: its Chrome trace holds the host operators and the
+    program's spans, on the trace's own time base (a batch's operators lie
+    inside its ``engine/batch`` span, on its thread)."""
+    fixture = structure_fixture(tmp_path / "fixture")
+    monkeypatch.setenv("MDEEPFRI_TPU_TRACE_DIR", str(tmp_path / "trace"))
+    assert cli.main([
+        "predict-function", "-i", str(fixture / "queries.faa"),
+        "-d", str(fixture / "structures"), "-w", str(weights_dir),
+        "-o", str(tmp_path / "out"), "--skip-pdb", "--mmseqs-max-evalue",
+        "1e-3", "-t", "2", "-p", "mf", "-p", "cc", "--device", "cpu"]) == 0
+    (trace,) = (tmp_path / "trace").glob("*.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    ops = [e for e in events if str(e.get("name")).startswith("aten::")]
+    spans = [e for e in events if e.get("cat") == "span"]
+    assert ops and spans
+    assert {"search/structures", "kmer/prefilter", "nw/rescore",
+            "nw/traceback", "engine/batch", "engine/pack", "engine/unpack",
+            "engine/emit", "model/lm", "model/graph",
+            "model/head"} <= {e["name"] for e in spans}
+    for batch in (e for e in spans if e["name"] == "engine/batch"):
+        assert batch["args"]["rows"] >= 1
+        assert any(op["tid"] == batch["tid"] and batch["ts"] <= op["ts"]
+                   and op["ts"] + op["dur"] <= batch["ts"] + batch["dur"]
+                   for op in ops)
+
+
 def test_search_databases_and_merge_results(weights_dir, tmp_path):
     fixture = structure_fixture(tmp_path / "fixture")
     assert cli.main([

@@ -693,3 +693,80 @@ def test_ranks_over_every_card(cards):
     got = graph_shard.graph_sharded_gcn_forward(cards, cfg, params, tokens,
                                                 coords, ins, lengths)
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+def test_spans_enclose_their_kernels_on_the_trace_clock(cuda):
+    """Under a CUDA-only profiler session (as the benchmark traces), a host
+    span around a product's launch and ``synchronize()`` encloses the
+    product's kernels on the trace's clock, and the device span's CUDA
+    events, resolved only when read, hold at least the kernels' time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from metagenomic_deepfri_tpu_torch import profiling
+
+    a = torch.randn(2048, 2048, device=cuda)
+    (a @ a).sum().item()
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            with profiling.span("probe"), \
+                    profiling.device_span("probe/device", cuda) as dev:
+                a @ a
+                assert dev._events is not None
+                torch.cuda.synchronize()
+    got = profiling.spans()
+    probes = [s for s in got if s.name == "probe"]
+    devices = [s for s in got if s.name == "probe/device"]
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation()]
+    assert len(probes) == len(devices) == 3 and kernels
+    for k in kernels:
+        start, end = k.start_ns(), k.start_ns() + k.duration_ns()
+        (probe,) = [p for p in probes if p.start_ns <= start <= p.end_ns]
+        assert end <= probe.end_ns
+    for probe, dev in zip(probes, devices):
+        inside = sum(k.duration_ns() for k in kernels
+                     if probe.start_ns <= k.start_ns() <= probe.end_ns)
+        assert inside / 1e9 <= dev.device_s <= probe.host_s
+    profiling.reset()
+
+
+def test_engine_spans_on_the_card(cuda):
+    """The engine's batch, host and model spans on the card: every model
+    span resolved to device seconds, ``engine/unpack`` opened only after the
+    device finished, and nothing recorded outside a session."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from metagenomic_deepfri_tpu_torch import profiling
+
+    use_highest_f32_precision()
+    cfg = GCNConfig(n_labels=24, lm_hidden=32, lm_layers=1, embed_dim=64,
+                    gc_dims=(32, 32), fc_dims=(64,))
+    h = {m: ModelHandle("gcn", m, cfg, gcn_params_to_numpy(init_gcn(
+        cfg, torch.Generator().manual_seed(2), "cpu"))) for m in ("mf",)}
+    engine = BatchedPredictor(h, device=cuda, spmm="fused", batch_cap=16)
+    items = aligned_items(40, seed=3, min_len=30, max_len=200)
+    profiling.reset()
+    engine.predict_gcn_from_coords(items)
+    assert profiling.spans() == []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.predict_gcn_from_coords(items)
+    got = {}
+    for s in profiling.spans():
+        got.setdefault(s.name, []).append(s)
+    batches = got["engine/batch"]
+    assert sum(b.counts["rows"] for b in batches) == 40
+    for name in ("model/lm", "model/graph", "model/head"):
+        assert len(got[name]) == len(batches)
+        assert all(s.device_s > 0 for s in got[name])
+    device = [(e.start_ns(), e.start_ns() + e.duration_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation()]
+    assert device
+    for batch, unpack in zip(batches, got["engine/unpack"]):
+        assert unpack.parent == batch.id
+        assert all(end <= unpack.start_ns for start, end in device
+                   if batch.start_ns <= start < unpack.start_ns)
+    profiling.reset()

@@ -314,8 +314,7 @@ def test_profiling_stages():
         assert rep["search/db"]["calls"] == 2
         assert rep["search/db"]["items"] == 15
         assert rep["inference/gcn"] == {
-            "calls": 0, "seconds": 0.0, "items": 7, "items_per_sec": None,
-            "edges_per_sec": None}
+            "calls": 0, "seconds": 0.0, "items": 7, "items_per_sec": None}
         profiling.log_report()
     finally:
         profiling.reset()
