@@ -88,8 +88,9 @@ def builtin_search(queries: Dict[str, str],
 
     While spans are recorded: one ``kmer/prefilter`` for the prefilter of
     every query, then for each query with candidates ``nw/rescore`` (their
-    NW scores) and ``nw/traceback`` (the alignments of its top hits, counter
-    ``alignments``)."""
+    NW scores) and ``nw/traceback`` (the alignments of its top hits that
+    pass ``max_eval``, counter ``alignments``; counter ``gated``, the top
+    hits cut by their e-value before any alignment)."""
     q_ids = list(queries)
     t_ids = list(targets)
     if not q_ids or not t_ids:
@@ -129,17 +130,25 @@ def builtin_search(queries: Dict[str, str],
             scores = nw_score_many(qseq, cand_seqs, scoring, gap_open,
                                    gap_extend, threads=threads)
         order = np.argsort(scores)[::-1][:top_hits]
-        with profiling.span("nw/traceback", alignments=len(order)):
-            for rank in order:
-                tid = t_ids[cand_ids[int(rank)]]
-                tseq = cand_seqs[int(rank)]
-                score, aln = nw_align(qseq, tseq, scoring, gap_open,
-                                      gap_extend)
-                bits = (KA_LAMBDA * score - math.log(KA_K)) / math.log(2.0)
-                evalue = len(qseq) * db_residues * math.pow(2.0, -bits) \
-                    if bits > 0 else float("inf")
-                if evalue > max_eval:
-                    continue
+        # The e-value falls as the score rises, and ``order`` is by
+        # descending score, so the hits that pass ``max_eval`` are a prefix
+        # of it: align only those. ``nw_align`` returns the score that
+        # ``nw_score_many`` gave.
+        kept = []
+        for rank in order:
+            bits = (KA_LAMBDA * int(scores[rank]) - math.log(KA_K)) \
+                / math.log(2.0)
+            evalue = len(qseq) * db_residues * math.pow(2.0, -bits) \
+                if bits > 0 else float("inf")
+            if evalue > max_eval:
+                break
+            kept.append((int(rank), bits, evalue))
+        with profiling.span("nw/traceback", alignments=len(kept),
+                            gated=len(order) - len(kept)):
+            for rank, bits, evalue in kept:
+                tid = t_ids[cand_ids[rank]]
+                tseq = cand_seqs[rank]
+                _, aln = nw_align(qseq, tseq, scoring, gap_open, gap_extend)
                 ident, qcov, tcov = alignment_stats(qseq, tseq, aln)
                 matches = round(ident * len(aln))
                 gapopens = _count_gap_opens(aln)

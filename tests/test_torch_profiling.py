@@ -21,6 +21,7 @@ from metagenomic_deepfri_tpu_torch.batching.buckets import assign_bucket
 from metagenomic_deepfri_tpu_torch.batching.engine import (BatchedPredictor,
                                                            ModelHandle)
 from metagenomic_deepfri_tpu_torch.models.deepfri import GCNConfig, init_gcn
+from metagenomic_deepfri_tpu_torch.search import engine as search_engine
 from metagenomic_deepfri_tpu_torch.search.engine import builtin_search
 from metagenomic_deepfri_tpu_torch.synthetic import aligned_items
 
@@ -259,27 +260,54 @@ def test_input_wait_needs_recording_at_entry():
         len(it[1]) for it in items), "slots": 4 * 64}
 
 
-def test_builtin_search_spans():
+def test_builtin_search_spans(monkeypatch):
     """One ``kmer/prefilter`` a search call, one ``nw/rescore`` and one
-    ``nw/traceback`` (with its ``alignments``) a query with candidates, all
-    under the stage's span; ``report()`` gains no key."""
+    ``nw/traceback`` a query with candidates, all under the stage's span;
+    ``report()`` gains no key. On each ``nw/traceback``, ``alignments`` (the
+    alignments run, the query's rows) and ``gated`` (top hits cut by their
+    e-value first) add up to the query's top hits, also for a query whose
+    candidates all fail (no alignment, the span still there)."""
     rng = np.random.default_rng(5)
     targets = {f"t{i}": "".join(rng.choice(AAS, size=int(n)))
                for i, n in enumerate(rng.integers(80, 160, size=12))}
     queries = {f"q{i}": targets[f"t{i}"][:70] for i in range(4)}
+    # random, with a 12-residue stretch of each of three targets: candidates
+    # that no global alignment carries to an e-value of 1
+    failing = list(rng.choice(AAS, size=150))
+    for k, tid in enumerate(("t4", "t5", "t6")):
+        failing[10 + 50 * k:22 + 50 * k] = targets[tid][20:32]
+    queries["q_fail"] = "".join(failing)
+    candidates = {}
+    rescore = search_engine.nw_score_many
+
+    def counting(query, cands, *args, **kwargs):
+        candidates[query] = len(cands)
+        return rescore(query, cands, *args, **kwargs)
+
+    monkeypatch.setattr(search_engine, "nw_score_many", counting)
+    top_hits = 3
     with profile(activities=[ProfilerActivity.CPU]):
         with profiling.stage("search/db", items=len(queries), log=False):
             rows = builtin_search(queries, targets, max_eval=1.0, threads=2,
-                                  top_hits=3)
-    assert len(rows) >= len(queries)
+                                  top_hits=top_hits)
     got = _by_name(profiling.spans())
     (stage,) = got["search/db"]
     assert len(got["kmer/prefilter"]) == 1
-    assert len(got["nw/rescore"]) == len(got["nw/traceback"]) == 4
+    assert len(got["nw/rescore"]) == len(got["nw/traceback"]) == 5
     for name in ("kmer/prefilter", "nw/rescore", "nw/traceback"):
         assert all(s.parent == stage.id for s in got[name])
-    assert all(1 <= s.counts["alignments"] <= 3
-               for s in got["nw/traceback"])
+    per_query = {q: int(np.count_nonzero(rows.table["query"] == q))
+                 for q in queries}
+    assert all(per_query[f"q{i}"] >= 1 for i in range(4))
+    assert list(candidates) == list(queries.values())
+    for qid, span in zip(queries, got["nw/traceback"]):
+        assert span.counts["alignments"] + span.counts["gated"] == \
+            min(top_hits, candidates[queries[qid]])
+        assert span.counts["alignments"] == per_query[qid]
+        assert 1 <= span.counts["alignments"] <= 3 or qid == "q_fail"
+    fail = got["nw/traceback"][-1].counts
+    assert candidates[queries["q_fail"]] >= 3
+    assert fail == {"alignments": 0, "gated": 3}
     total = sum(s.host_s for n in ("kmer/prefilter", "nw/rescore",
                                    "nw/traceback") for s in got[n])
     assert total <= stage.host_s

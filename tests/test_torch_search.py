@@ -9,6 +9,7 @@ so the multithreaded calls below run with both in one process.
 """
 
 import gzip
+import math
 import os
 import shutil
 from pathlib import Path
@@ -162,6 +163,104 @@ def test_builtin_search_matches_jax(homology_set):
     assert _tables_equal(ours.table, theirs.table)
     assert (ours.query_fasta, ours.database) == \
         (theirs.query_fasta, theirs.database)
+
+
+def _stitched(rng, base, donors, segment=12):
+    """``base`` with a ``segment``-residue stretch of each donor written over
+    it at random places: seven shared 5-mers a donor, so each is a k-mer
+    candidate whose global alignment is no better than chance."""
+    out = list(base)
+    for donor in donors:
+        d0 = int(rng.integers(0, len(donor) - segment + 1))
+        at = int(rng.integers(0, len(out) - segment + 1))
+        out[at:at + segment] = donor[d0:d0 + segment]
+    return "".join(out)
+
+
+@pytest.fixture(scope="module")
+def gate_set():
+    """300 uniform-random targets, 5 % of them near-copies (5 %
+    substitutions) of others, and 4 exact duplicates; 40 queries: 16
+    near-copies (10 %) of targets with a duplicate or a near-copy, 24 random
+    ones, each with stretches of 2–10 random targets stitched in, so most
+    of a query's candidates fail any useful e-value."""
+    rng = np.random.default_rng(15)
+    targets = {f"t{i}": _random_seq(rng, int(rng.integers(80, 300)))
+               for i in range(285)}
+    for i in range(15):
+        targets[f"near{i}"] = _mutate(rng, targets[f"t{i}"], 0.05)
+    for i in range(15, 19):
+        targets[f"dup{i}"] = targets[f"t{i}"]
+    t_ids = list(targets)
+    queries = {}
+    for i in range(40):
+        base = (_mutate(rng, targets[f"t{i % 19}"], 0.10) if i < 16
+                else _random_seq(rng, int(rng.integers(120, 300))))
+        donors = [targets[t_ids[int(j)]] for j in rng.choice(
+            len(t_ids), size=int(rng.integers(2, 11)), replace=False)]
+        queries[f"q{i}"] = _stitched(rng, base, donors)
+    return targets, queries
+
+
+@pytest.mark.parametrize("top_hits", [1, 30])
+@pytest.mark.parametrize("case", ["sparse", "exact", "ties"])
+def test_gated_builtin_search_matches_jax(gate_set, case, top_hits):
+    """The port aligns only the top hits whose rescoring e-value passes
+    ``max_eval``; the JAX package aligns every top hit and cuts after. The
+    tables are equal column by column: where most candidates fail
+    (``sparse``), where ``max_eval`` is exactly one hit's e-value, which is
+    kept since the cut is ``>`` (``exact``), and where it is the e-value of
+    two tied scores, or the next float below it (``ties``)."""
+    targets, queries = gate_set
+    kw = dict(threads=2, top_hits=top_hits, query_fasta="q.faa",
+              database="db.fasta")
+    every = jax_engine.builtin_search(queries, targets, max_eval=math.inf,
+                                      **kw).table
+    if case == "sparse":
+        cuts = [1e-4]
+    elif case == "exact":
+        # the median of the passing e-values: hits above it are cut
+        passing = np.unique(every["evalue"][every["evalue"] < 1e-4])
+        cuts = [float(passing[len(passing) // 2])]
+    else:
+        # a near-copy of a duplicated target scores both copies alike
+        ties = [i for i in range(len(every))
+                if str(every["target"][i]).startswith("dup")
+                and every["evalue"][i] < 1e-4]
+        assert ties
+        e = float(every["evalue"][ties[0]])
+        assert np.count_nonzero(every["evalue"] == e) >= min(top_hits, 2)
+        cuts = [e, float(np.nextafter(e, 0.0))]
+    for max_eval in cuts:
+        ours = engine.builtin_search(queries, targets, max_eval=max_eval,
+                                     **kw)
+        theirs = jax_engine.builtin_search(queries, targets,
+                                           max_eval=max_eval, **kw)
+        assert _tables_equal(ours.table, theirs.table)
+        assert 0 < len(ours) < len(every)
+        if case == "exact":
+            assert max_eval in set(ours.table["evalue"])
+    if case == "sparse":
+        # most of the top hits are cut
+        assert len(ours) < 0.5 * len(every)
+
+
+@pytest.mark.parametrize("gaps", [(11, 1), (10, 1)])
+def test_rescoring_score_is_traceback_score(gaps):
+    """What gating the traceback on the rescoring score rests on: over query
+    and target lengths 1, 40, 270 and 1,000, unrelated, identical and
+    near-copy pairs, ``nw_score_many``'s score equals ``nw_align``'s, for
+    BLOSUM62 and the search's and re-alignment's gap settings."""
+    sm = matrices.ScoringMatrix.from_name("BLOSUM62")
+    rng = np.random.default_rng(40)
+    lengths = (1, 40, 270, 1000)
+    for n in lengths:
+        q = _random_seq(rng, n)
+        targets = [_random_seq(rng, m) for m in lengths]
+        targets += [q, _mutate(rng, q, 0.1)]
+        many = nw.nw_score_many(q, targets, sm, *gaps, threads=2)
+        assert list(many) == [nw.nw_align(q, t, sm, *gaps)[0]
+                              for t in targets]
 
 
 def test_search_results_filters_and_files_cross_load(homology_set, tmp_path):
