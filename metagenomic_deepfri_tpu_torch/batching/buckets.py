@@ -22,6 +22,11 @@ _TARGET_ADJ_ELEMS = 512 * 1024 * 1024
 _MAX_GCN_BATCH = 2048
 # Target token elements per CNN batch (B·L) — CNN has no O(L²) term.
 _TARGET_TOK_ELEMS = 512 * 1024
+# Token slots (rows × bucket) a batch of a GCN with an ESM-2 trunk, whose
+# ~1.3 GFLOP a token dwarfs the rest: the B·L² rule above would give
+# ~1 M tokens (~27 s of float32 work) a batch at bucket 512. Chosen by a
+# sweep on the H100 (PERF.md).
+ESM_TOKEN_SLOTS = 32 * 1024
 
 
 def assign_bucket(length: int,
@@ -37,6 +42,15 @@ def assign_bucket(length: int,
 def gcn_batch_size(bucket: int) -> int:
     """Batch size keeping B·L² ≈ constant (capped), multiple-of-8."""
     b = max(1, min(_MAX_GCN_BATCH, _TARGET_ADJ_ELEMS // (bucket * bucket)))
+    if b >= 8:
+        b -= b % 8
+    return b
+
+
+def esm_batch_size(bucket: int) -> int:
+    """Rows keeping B·L ≈ :data:`ESM_TOKEN_SLOTS`: 256, 128, 64, 32 at
+    buckets 128-1024; multiple-of-8 from 8 up."""
+    b = max(1, ESM_TOKEN_SLOTS // bucket)
     if b >= 8:
         b -= b % 8
     return b

@@ -59,12 +59,13 @@ from metagenomic_deepfri_tpu_torch.batching.buckets import (DEFAULT_BUCKETS,
                                                             assign_bucket,
                                                             bucket_plan,
                                                             cnn_batch_size,
+                                                            esm_batch_size,
                                                             gcn_batch_size)
 from metagenomic_deepfri_tpu_torch.batching.spmm_table import (SPMM_POLICIES,
                                                                resolve_spmm)
 from metagenomic_deepfri_tpu_torch.models.convert import gcn_params_from_numpy
 from metagenomic_deepfri_tpu_torch.models.deepfri import (
-    GCNConfig, cnn_forward, gcn_forward, gcn_forward_fused,
+    GCNConfig, cnn_forward, esm_of, gcn_forward, gcn_forward_fused,
     gcn_forward_multimode)
 from metagenomic_deepfri_tpu_torch.ops.cmap_align import \
     aligned_contacts_from_coords
@@ -86,7 +87,8 @@ class ModelHandle:
     importers) or a tree of tensors; the engine places it on its device and
     leaves the handle's tree as it is. ``fingerprints`` ({top_key: digest})
     are host-side content hashes for shared-trunk detection; the engine
-    fills them in when it needs them.
+    fills them in when it needs them: not for a subtree that every mode
+    holds as the very same tensors.
     """
     net_type: str          # "gcn" | "cnn"
     mode: str              # "bp" | "cc" | "mf" | "ec"
@@ -122,14 +124,54 @@ def _subtree_digest(tree) -> str:
     return h.hexdigest()
 
 
+def _leaf_identity(leaf):
+    """Where a tensor or array leaf's values lie (device, address, shape,
+    strides, dtype); None for any other leaf."""
+    if isinstance(leaf, torch.Tensor):
+        return (str(leaf.device), leaf.data_ptr(), tuple(leaf.shape),
+                leaf.stride(), str(leaf.dtype))
+    if isinstance(leaf, np.ndarray):
+        return ("host", leaf.__array_interface__["data"][0], leaf.shape,
+                leaf.strides, str(leaf.dtype))
+    return None
+
+
+def _same_tensors(trees: list) -> bool:
+    """Whether the subtrees are made of the very same tensors or arrays,
+    leaf for leaf: equal without reading their values (a trunk handed to
+    every mode as one tree, as a model set that shares it is loaded)."""
+    first = [(path, _leaf_identity(leaf))
+             for path, leaf in _tree_leaves(trees[0])]
+    if not first or any(ident is None for _, ident in first):
+        return False
+    return all([(path, _leaf_identity(leaf))
+                for path, leaf in _tree_leaves(t)] == first
+               for t in trees[1:])
+
+
+def _fill_fingerprints(handles: List[ModelHandle]) -> None:
+    """Give each handle without ``fingerprints`` the content hash of every
+    subtree that the handles do not all hold as the very same tensors
+    (those need none, and a 2.6 GB trunk is neither copied to the host nor
+    hashed)."""
+    aliased = {k for k in handles[0].params
+               if _same_tensors([h.params.get(k) for h in handles])}
+    for h in handles:
+        if h.fingerprints is None:
+            h.fingerprints = {k: _subtree_digest(v)
+                              for k, v in h.params.items()
+                              if k not in aliased}
+
+
 def _detect_shared_gcn(gcn_models: Dict[str, ModelHandle]):
     """Bitwise-shared trunk subtrees across the loaded GCN modes.
 
     Returns ``(shared, per_mode, configs)`` when at least ``lm`` is shared
     (``lm_embed``/``aa_embed`` join it when they are shared too) and the
     configs agree on everything but ``n_labels`` — the precondition of
-    :func:`..models.deepfri.gcn_forward_multimode` — else None. Equality is
-    read from the handles' ``fingerprints``.
+    :func:`..models.deepfri.gcn_forward_multimode` — else None. A subtree
+    is shared when every mode holds it as the very same tensors, or else
+    when the handles' ``fingerprints`` agree.
     """
     modes = list(gcn_models)
     if len(modes) < 2:
@@ -148,8 +190,9 @@ def _detect_shared_gcn(gcn_models: Dict[str, ModelHandle]):
         if handles[0].params.get(k) is None:
             continue
         fp0 = (handles[0].fingerprints or {}).get(k)
-        if fp0 and all((h.fingerprints or {}).get(k) == fp0
-                       for h in handles[1:]):
+        if _same_tensors([h.params.get(k) for h in handles]) or (
+                fp0 and all((h.fingerprints or {}).get(k) == fp0
+                            for h in handles[1:])):
             shared_keys.append(k)
     if "lm" not in shared_keys:
         return None
@@ -352,11 +395,10 @@ class BatchedPredictor:
                 getattr(h.config, "compute_dtype", "float32") == "float32"
                 for h in handles):
             use_highest_f32_precision()
+        self._esm_trunk = any(esm_of(h.config) is not None
+                              for h in self.gcn_models.values())
         if len(self.gcn_models) >= 2:
-            for h in self.gcn_models.values():
-                if h.fingerprints is None:
-                    h.fingerprints = {k: _subtree_digest(v)
-                                      for k, v in h.params.items()}
+            _fill_fingerprints(list(self.gcn_models.values()))
         self._gcn_shared = _detect_shared_gcn(self.gcn_models)
         self._dispatched = 0  # real batches started (see :meth:`warmup`)
         if self._gcn_shared is not None:
@@ -400,10 +442,16 @@ class BatchedPredictor:
     # -- batch sizes -----------------------------------------------------------
 
     def _steady_batch(self, bucket: int, net: str = "gcn_coords") -> int:
-        """The full batch size for a bucket: the one-device size times the
-        device count, capped."""
-        batch = (cnn_batch_size(bucket) if net == "cnn"
-                 else gcn_batch_size(bucket)) * len(self.devices)
+        """The full batch size for a bucket: the one-device size (by token
+        slots where a GCN mode has an ESM-2 trunk) times the device count,
+        capped."""
+        if net == "cnn":
+            batch = cnn_batch_size(bucket)
+        elif self._esm_trunk:
+            batch = esm_batch_size(bucket)
+        else:
+            batch = gcn_batch_size(bucket)
+        batch *= len(self.devices)
         if self.batch_cap:
             batch = min(batch, self.batch_cap)
         return batch

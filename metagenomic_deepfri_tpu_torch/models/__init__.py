@@ -1,2 +1,2 @@
-"""DeepFRI GCN and its LSTM language-model branch in PyTorch
-(counterpart of ``metagenomic_deepfri_tpu.models``)."""
+"""DeepFRI GCN and its language-model branch (the LSTM-LM, or ESM-2 in
+its place) in PyTorch (counterpart of ``metagenomic_deepfri_tpu.models``)."""

@@ -9,6 +9,8 @@ modules.
 
 GCN:   one-hot(26) ─┬─ LSTM-LM stack ── Dense(no bias) ──┐
                     └─ Dense(bias) ──────────────────────┴─ add → ReLU
+       (an ESMGCNConfig runs ESM-2 on the tokens (:mod:`.esm2`) in the
+       LSTM-LM's place)
        → 3 × GraphConv(512, ReLU):  Hₗ₊₁ = relu(Â · Hₗ · Wₗ)
        → concat(H₁‖H₂‖H₃) → masked sum-pool over L
        → Dense(1024, ReLU) → Dense(2·n_labels) → reshape (n_labels, 2)
@@ -23,13 +25,17 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from metagenomic_deepfri_tpu_torch.models.esm2 import (ESM2Config,
+                                                       esm2_forward,
+                                                       init_esm2,
+                                                       trunk_counts)
 from metagenomic_deepfri_tpu_torch.models.lstm import (accumulate_dtype,
                                                        init_lstm_stack,
                                                        lstm_stack_forward)
@@ -37,7 +43,8 @@ from metagenomic_deepfri_tpu_torch.ops.graphconv import normalized_aggregate
 from metagenomic_deepfri_tpu_torch.ops.one_hot import (VOCAB_SIZE,
                                                        seq2tokens,
                                                        tokens2onehot)
-from metagenomic_deepfri_tpu_torch.profiling import device_span
+from metagenomic_deepfri_tpu_torch.profiling import (count, device_span,
+                                                      recording)
 
 # float64 is not a serving dtype: it is the reference precision that float32
 # training is checked against (dense path only; the kernels are float32).
@@ -58,6 +65,19 @@ class GCNConfig:
     adj_norm: str = "sym"          # 'sym' | 'row' | 'none'
     pool: str = "sum"              # 'sum' | 'mean' over the length axis
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16' | 'float64'
+
+
+@dataclass(frozen=True)
+class ESMGCNConfig(GCNConfig):
+    """A GCN whose residue LM is ESM-2 (:mod:`.esm2`, widths ``esm``) in
+    the LSTM-LM's place; the ``lm_*`` fields are not read. (A subclass, so
+    that :class:`GCNConfig` keeps the JAX package's fields.)"""
+    esm: ESM2Config = ESM2Config()
+
+
+def esm_of(config) -> Optional[ESM2Config]:
+    """The ESM-2 trunk's widths of a GCN config, None for an LSTM-LM."""
+    return getattr(config, "esm", None)
 
 
 @dataclass(frozen=True)
@@ -100,12 +120,18 @@ def _dense_init(in_dim: int, out_dim: int, generator: torch.Generator,
 def init_gcn(config: GCNConfig, generator: torch.Generator, device, *,
              gc_bias: bool = False, lm_embed_bias: bool = False) -> dict:
     """Random GCN parameter tree (same structure and shapes as the JAX
-    ``init_gcn``; different numbers, since the generators differ)."""
-    lm_out = config.lm_hidden * (2 if config.lm_bidirectional else 1)
+    ``init_gcn``; different numbers, since the generators differ). With an
+    ESM-2 trunk, ``lm`` is :func:`.esm2.init_esm2`'s tree."""
+    if esm_of(config) is not None:
+        lm_out = config.esm.dim
+        lm = init_esm2(config.esm, generator, device)
+    else:
+        lm_out = config.lm_hidden * (2 if config.lm_bidirectional else 1)
+        lm = init_lstm_stack(config.vocab, config.lm_hidden,
+                             config.lm_layers, generator, device,
+                             bidirectional=config.lm_bidirectional)
     params = {
-        "lm": init_lstm_stack(config.vocab, config.lm_hidden,
-                              config.lm_layers, generator, device,
-                              bidirectional=config.lm_bidirectional),
+        "lm": lm,
         "lm_embed": _dense_init(lm_out, config.embed_dim, generator, device,
                                 bias=lm_embed_bias),
         "aa_embed": _dense_init(config.vocab, config.embed_dim, generator,
@@ -226,16 +252,32 @@ def _merge_embeddings(lm_embed: dict, aa_embed: dict, lm_out: torch.Tensor,
                       + _dense(aa_embed, onehot)).to(dtype)
 
 
+def _lm_forward(lm: object, config: GCNConfig, tokens: torch.Tensor,
+               onehot: torch.Tensor, lengths: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """The residue LM's (B, L, ·) output: the LSTM-LM stack on the one-hot,
+    or ESM-2 on the tokens (in float32, float64 for float64 compute), whose
+    batch counters ``tokens``, ``slots`` and ``attn_pairs``
+    (:func:`.esm2.trunk_counts`) go to the enclosing span while spans are
+    recorded."""
+    if esm_of(config) is None:
+        return lstm_stack_forward(lm, onehot, lengths, compute_dtype=dtype)
+    if recording():
+        count(**trunk_counts(lengths, tokens.shape[1]))
+    return esm2_forward(lm, config.esm, tokens, lengths,
+                        accumulate_dtype(dtype))
+
+
 def _embed(params: dict, config: GCNConfig, tokens: torch.Tensor,
            lengths: torch.Tensor):
-    """One-hot → LSTM-LM + residue embedding → (x in compute dtype, valid),
-    under the device span ``model/lm``."""
+    """One-hot → residue LM + residue embedding → (x in compute dtype,
+    valid), under the device span ``model/lm``."""
     dtype = compute_dtype_of(config)
     with device_span("model/lm", tokens.device):
         onehot, valid = _masked_onehot(tokens, lengths,
                                        accumulate_dtype(dtype))
-        lm_out = lstm_stack_forward(params["lm"], onehot, lengths,
-                                    compute_dtype=dtype)
+        lm_out = _lm_forward(params["lm"], config, tokens, onehot, lengths,
+                             dtype)
         x = _merge_embeddings(params["lm_embed"], params["aa_embed"], lm_out,
                               onehot, dtype)
     return x, valid
@@ -391,8 +433,8 @@ def gcn_forward_multimode(shared: dict, per_mode: dict, configs: dict,
 
     with device_span("model/lm", dev):
         onehot, valid = _masked_onehot(tokens, lengths, acc)
-        lm_shared = (lstm_stack_forward(shared["lm"], onehot, lengths,
-                                        compute_dtype=dtype)
+        lm_shared = (_lm_forward(shared["lm"], cfg0, tokens, onehot,
+                                 lengths, dtype)
                      if "lm" in shared else None)
         x_shared = None
         if (lm_shared is not None and "lm_embed" in shared
@@ -407,8 +449,8 @@ def gcn_forward_multimode(shared: dict, per_mode: dict, configs: dict,
         if x is None:
             with device_span("model/lm", dev):
                 lm_out = (lm_shared if lm_shared is not None
-                          else lstm_stack_forward(p["lm"], onehot, lengths,
-                                                  compute_dtype=dtype))
+                          else _lm_forward(p["lm"], cfg, tokens, onehot,
+                                           lengths, dtype))
                 x = _merge_embeddings(
                     shared.get("lm_embed", p.get("lm_embed")),
                     shared.get("aa_embed", p.get("aa_embed")), lm_out,

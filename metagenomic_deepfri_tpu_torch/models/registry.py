@@ -21,7 +21,10 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from metagenomic_deepfri_tpu_torch.batching.engine import ModelHandle
-from metagenomic_deepfri_tpu_torch.models.deepfri import CNNConfig, GCNConfig
+from metagenomic_deepfri_tpu_torch.models.deepfri import (CNNConfig,
+                                                          ESMGCNConfig,
+                                                          GCNConfig)
+from metagenomic_deepfri_tpu_torch.models.esm2 import ESM2Config
 from metagenomic_deepfri_tpu_torch.models.onnx_import import (
     _topo_matmul_weights, collect_lstm_layers, detect_embedding_merge,
     detect_gcn_pool, graph_input_roles, import_cnn_params, import_gcn_params,
@@ -354,7 +357,8 @@ def _unflatten(flat: dict):
 
 
 def save_checkpoint(path, config, params):
-    """Save params (+config) as .npz / .json sidecar."""
+    """Save params (+config) as .npz / .json sidecar (an
+    :class:`ESMGCNConfig`'s with its trunk's widths under ``esm``)."""
     flat = _flatten(params)
     np.savez_compressed(path, **flat)
     cfg = dict(asdict(config))
@@ -372,9 +376,11 @@ def load_checkpoint(path):
     cfg_path = str(Path(path).with_suffix("")) + "_config.json"
     with open(cfg_path, "r", encoding="utf-8") as f:
         cfg = json.load(f)
-    cls = {"GCNConfig": GCNConfig, "CNNConfig": CNNConfig}[
-        cfg.pop("__class__")]
+    cls = {"GCNConfig": GCNConfig, "CNNConfig": CNNConfig,
+           "ESMGCNConfig": ESMGCNConfig}[cfg.pop("__class__")]
     for key in ("gc_dims", "fc_dims", "conv_kernels"):
         if key in cfg:
             cfg[key] = tuple(cfg[key])
+    if "esm" in cfg:
+        cfg["esm"] = ESM2Config(**cfg["esm"])
     return cls(**cfg), params

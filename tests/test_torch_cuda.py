@@ -770,3 +770,49 @@ def test_engine_spans_on_the_card(cuda):
         assert all(end <= unpack.start_ns for start, end in device
                    if batch.start_ns <= start < unpack.start_ns)
     profiling.reset()
+
+
+def test_esm2_trunk_at_published_widths_on_card(cuda):
+    """ESM-2 650M's trunk (33 layers, d 1280, 20 heads, FFN 5120) on a few
+    proteins in one padded batch, with an empty padding row, against the
+    plain reference (``esm2_reference.py``, float64 on the card), with
+    TF32 off. The tolerance, 5e-4 on the residue representation (values of
+    order 1 after the final LayerNorm), holds float32 rounding through 33
+    layers of width 1280 and 5120 with room (5.4e-6 on the H100); the same
+    batch with TF32 on (10 mantissa bits for every matmul operand; 3.5e-3)
+    misses it."""
+    from esm2_reference import residues
+    from metagenomic_deepfri_tpu_torch.models.esm2 import (ESM2Config,
+                                                           esm2_forward,
+                                                           init_esm2)
+
+    cfg = ESM2Config()
+    tree = init_esm2(cfg, torch.Generator(device=cuda).manual_seed(7), cuda)
+    rng = np.random.default_rng(8)
+    seqs = ["".join(rng.choice(list(AMINO_ACIDS), size=n))
+            for n in (37, 250, 610)]
+    tokens = np.zeros((4, 640), np.uint8)
+    lengths = np.zeros(4, np.int32)
+    for i, s in enumerate(seqs):
+        tokens[i, :len(s)] = seq2tokens(s)
+        lengths[i] = len(s)
+    tok, lens = (torch.from_numpy(tokens).to(cuda),
+                 torch.from_numpy(lengths).to(cuda))
+    ref = [residues(tree, cfg.heads, s) for s in seqs]
+
+    def widest():
+        with torch.inference_mode():
+            got = esm2_forward(tree, cfg, tok, lens)
+        assert torch.isfinite(got).all()
+        return max(float((got[i, :len(s)].double() - r).abs().max())
+                   for i, (s, r) in enumerate(zip(seqs, ref)))
+
+    use_highest_f32_precision()
+    exact = widest()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = widest()
+    finally:
+        use_highest_f32_precision()
+    print(f"esm2 trunk on the card: float32 {exact:.3g}, TF32 {tf32:.3g}")
+    assert exact < 5e-4 < tf32
