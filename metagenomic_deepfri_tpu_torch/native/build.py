@@ -1,10 +1,13 @@
-"""Build the host C++ libraries (NW aligner, k-mer prefilter) at first use.
+"""Build the host C++ libraries (NW aligner, k-mer prefilter, TSV row
+formatter) at first use.
 
-The sources are this package's own ``native/nw.cpp`` and
-``native/kmersearch.cpp``, byte-identical copies of the JAX package's (a
-test holds them equal), so both packages run one NW and one prefilter and
-the port needs nothing of the JAX package's tree. They are compiled with the
-JAX package's compiler and flags (``g++ -O3 -fopenmp -march=native ...``, the
+``native/nw.cpp`` and ``native/kmersearch.cpp`` (:data:`TWINS`) are
+byte-identical copies of the JAX package's (a test holds them equal), so
+both packages run one NW and one prefilter and the port needs nothing of the
+JAX package's tree. ``native/tsvfmt.cpp``, which writes the prediction
+matrices' rows, is the port's own and has no JAX twin: its tests hold it to
+the ``"%.9g"`` formatting it replaces. All are compiled with the JAX
+package's compiler and flags (``g++ -O3 -fopenmp -march=native ...``, the
 ``g++`` found on ``PATH``, as the JAX package runs it; ``$CXX`` is not read,
 since it may name a compiler without OpenMP) into this package's ``build/``
 directory, never next to the sources.
@@ -39,11 +42,15 @@ BUILD_DIR = _PKG_DIR / "build"
 CXX = "g++"
 CXXFLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-fopenmp",
             "-march=native", "-funroll-loops")
-NAMES = ("nw", "kmersearch")
+# Copies of the JAX package's sources, and every library.
+TWINS = ("nw", "kmersearch")
+NAMES = TWINS + ("tsvfmt",)
 
 _P32 = ctypes.POINTER(ctypes.c_int32)
 _P64 = ctypes.POINTER(ctypes.c_int64)
 _I32 = ctypes.c_int32
+_I64 = ctypes.c_int64
+_PTR = ctypes.c_void_p
 # (restype, argtypes) of every exported function, set once at load.
 SIGNATURES = {
     "nw": {
@@ -55,6 +62,11 @@ SIGNATURES = {
     "kmersearch": {
         "kmer_candidates": (None, [_P32, _P64, _I32, _P32, _P64, _I32, _I32,
                                    _I32, _I32, _I32, _I32, _P32, _P32]),
+    },
+    "tsvfmt": {
+        f"tsv_format_rows_{t}": (_I64, [_PTR, _I64, _I64, ctypes.c_char_p,
+                                        _PTR, _PTR, _I64])
+        for t in ("f32", "f64")
     },
 }
 

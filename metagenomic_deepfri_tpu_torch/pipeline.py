@@ -53,6 +53,7 @@ from metagenomic_deepfri_tpu_torch.bio_utils import (build_align_contact_map,
                                                      build_align_projection)
 from metagenomic_deepfri_tpu_torch.checkpoint import PredictionCheckpoint
 from metagenomic_deepfri_tpu_torch.models.registry import load_models
+from metagenomic_deepfri_tpu_torch.native import tsvfmt
 from metagenomic_deepfri_tpu_torch.search.database import (Database,
                                                            build_database)
 from metagenomic_deepfri_tpu_torch.search.pdb import (create_pdb_mmseqs,
@@ -615,19 +616,18 @@ def predict_protein_function(
             if skip_matrix:
                 return
             with profiling.stage("write/matrices"), \
-                    open(output_path / filename, "w", encoding="utf-8",
-                         newline="") as fh:
-                fh.write("\t".join(["protein", "network_type"]
-                                   + list(goterms)) + "\n")
-                for qid, net, scores in jobs:
-                    # bulk C-level float formatting: a 10k-protein BP
-                    # matrix is 40M cells — per-cell float()/str() was the
-                    # slowest stage of large runs. %.9g round-trips
-                    # float32 exactly.
-                    row = np.char.mod(
-                        "%.9g", np.asarray(scores, dtype=np.float64))
-                    fh.write(qid + "\t" + net + "\t"
-                             + "\t".join(row.tolist()) + "\n")
+                    open(output_path / filename, "wb") as fh:
+                fh.write(("\t".join(["protein", "network_type"]
+                                    + list(goterms)) + "\n").encode())
+                # A 10k-protein BP matrix is 40M cells: native code
+                # (native/tsvfmt.cpp, std::to_chars) formats a block of
+                # rows into one buffer, each cell byte-equal to "%.9g",
+                # with no Python object per cell. Nine significant digits
+                # round-trip a float32 exactly (FLT_DECIMAL_DIG is 9).
+                cells = tsvfmt.write_rows(
+                    fh, [f"{qid}\t{net}\t" for qid, net, _ in jobs],
+                    [scores for _, _, scores in jobs])
+                profiling.count(rows=len(jobs), cells=cells)
 
         gcn_rows = [(qid, "gcn", gcn_scores[mode][qid])
                     for qid, *_ in gcn_items] if gcn_handle else []

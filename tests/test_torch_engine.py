@@ -324,8 +324,8 @@ def test_port_imports_no_jax():
 
 def test_import_builds_nothing(tmp_path):
     """Importing every module of the port runs no compiler: neither nvcc
-    (the kernels) nor the C++ compiler (the native NW and k-mer libraries),
-    both replaced by scripts that leave a marker."""
+    (the kernels) nor the C++ compiler (the native NW, k-mer and TSV
+    formatter libraries), both replaced by scripts that leave a marker."""
     fake_bin = tmp_path / "bin"
     fake_bin.mkdir()
     markers = []
@@ -350,7 +350,7 @@ def test_import_builds_nothing(tmp_path):
     assert not any(m.exists() for m in markers)
     assert "LIB False" in proc.stdout
     # the libraries are keyed on the compiler's path: none for the fake
-    assert "NATIVE [False, False]" in proc.stdout
+    assert "NATIVE [False, False, False]" in proc.stdout
     assert "LOADED {}" in proc.stdout
 
 

@@ -458,3 +458,67 @@ def test_pipeline_starts_no_warmup(weights_dir, structure_dir, tmp_path,
     out = run_pipeline("torch", structure_dir, tmp_path / "run", weights_dir,
                        deepfri_processing_modes=["mf"])
     assert (out / "results.tsv").exists()
+
+
+def _printf_rows(prefixes, rows) -> bytes:
+    """Rows as the pipeline formatted them before ``native/tsvfmt.cpp``:
+    ``np.char.mod("%.9g")`` joined by tabs."""
+    return "".join(
+        p + "\t".join(np.char.mod(
+            "%.9g", np.asarray(r, dtype=np.float64)).tolist()) + "\n"
+        for p, r in zip(prefixes, rows)).encode("utf-8")
+
+
+def test_matrices_byte_equal_to_printf_formatter(weights_dir, structure_dir,
+                                                 tmp_path, monkeypatch):
+    """Every ``prediction_matrix_*.tsv`` of a run is byte-equal to what the
+    ``np.char.mod("%.9g")`` formatter writes for the same scores, GCN rows
+    and CNN rows alike, after the header."""
+    from metagenomic_deepfri_tpu_torch.native import tsvfmt
+
+    seen = {}
+    write_rows = tsvfmt.write_rows
+
+    def spy(fh, prefixes, rows):
+        seen[Path(fh.name).name] = (list(prefixes),
+                                    [np.array(r) for r in rows])
+        return write_rows(fh, prefixes, rows)
+
+    monkeypatch.setattr(tsvfmt, "write_rows", spy)
+    out = run_pipeline("torch", structure_dir, tmp_path / "run", weights_dir,
+                       deepfri_processing_modes=["mf", "bp", "cc"])
+    names = sorted(p.name for p in out.glob("prediction_matrix_*"))
+    assert names == sorted(seen) and len(names) == 3
+    for name in names:
+        got = (out / name).read_bytes()
+        header, _, body = got.partition(b"\n")
+        assert header == "\t".join(
+            ["protein", "network_type"]
+            + [f"GO:{i:07d}" for i in range(6)]).encode()
+        prefixes, rows = seen[name]
+        assert {p.split("\t")[1] for p in prefixes} == {"gcn", "cnn"}
+        assert all(r.dtype == np.float32 for r in rows)
+        assert body == _printf_rows(prefixes, rows), name
+
+
+def test_write_matrices_span_counts_rows_and_cells(weights_dir,
+                                                   structure_dir, tmp_path):
+    """While recording, each ``write/matrices`` span counts the rows and the
+    scores it formatted: every row of every matrix, 6 terms each."""
+    from metagenomic_deepfri_tpu_torch import profiling
+
+    profiling.set_recording(True)
+    try:
+        profiling.reset()
+        out = run_pipeline("torch", structure_dir, tmp_path / "run",
+                           weights_dir, deepfri_processing_modes=["mf", "bp"])
+        got = [s for s in profiling.spans() if s.name == "write/matrices"]
+    finally:
+        profiling.set_recording(None)
+        profiling.reset()
+    lines = [len((out / f"prediction_matrix_{m}.tsv").read_text()
+                 .splitlines()) - 1 for m in ("bp", "mf")]
+    assert len(got) == 2 and min(lines) >= 3
+    assert sorted(s.counts["rows"] for s in got) == sorted(lines)
+    assert [s.counts["cells"] for s in got] == \
+        [6 * s.counts["rows"] for s in got]

@@ -404,18 +404,22 @@ def test_align_mmseqs_results_matches_jax(homology_set, tmp_path):
 
 
 def test_native_libraries_built_in_port_build_dir():
-    """Both libraries come from the port's own copies of the JAX package's
-    sources (byte-equal), are written into the port's own build directory
-    under a key of source, compiler, flags and CPU, and never next to the
+    """Every library comes from the port's own sources (the NW and the
+    prefilter byte-equal copies of the JAX package's; the TSV formatter the
+    port's alone), is written into the port's own build directory under a
+    key of source, compiler, flags and CPU, and never next to the
     sources."""
+    assert set(native.TWINS) == {"nw", "kmersearch"}
+    assert set(native.NAMES) == set(native.TWINS) | {"tsvfmt"}
     for name in native.NAMES:
         path = native.library_path(name)
         assert path.parent == REPO / "metagenomic_deepfri_tpu_torch" / "build"
         assert native.source_path(name) == \
             REPO / "metagenomic_deepfri_tpu_torch" / "native" / f"{name}.cpp"
-        assert native.source_path(name).read_bytes() == (
-            REPO / "metagenomic_deepfri_tpu" / "native" /
-            f"{name}.cpp").read_bytes()
+        if name in native.TWINS:
+            assert native.source_path(name).read_bytes() == (
+                REPO / "metagenomic_deepfri_tpu" / "native" /
+                f"{name}.cpp").read_bytes()
         assert native.load(name) is native.load(name)
         assert path.is_file()
 
