@@ -52,16 +52,14 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    counted) and on the
    dense route's shared-trunk step (atol 1e-4 between them), 64 sequences
    without a structure hit (length 40–1000) through ``predict_cnn`` (each
-   row within 1e-5 of its unpadded single-protein run on the card), and a
-   ``score_topk=256`` engine held to the dense one (overflow sets equal,
-   above-threshold values equal on complete rows). The same 96 proteins as
+   row within 1e-5 of its unpadded single-protein run on the card). The
+   same 96 proteins as
    dense contact maps (each one's adjacency from the card, as bool)
    through ``predict_gcn`` on the shared-trunk step and per mode, each
    within 1e-4 of ``predict_gcn_from_coords`` on that route, no kernel
    launched, and the uint8 bytes each batch sends to the card. Times a
-   warm pass of each route (``predict_gcn`` too), the CNN, and the bp
-   head's top-k fetch against its dense fetch (passes taken in turns,
-   median of 3).
+   warm pass of each route (``predict_gcn`` too) and the CNN (passes
+   taken in turns, median of 3).
 7. ``predict-function`` end to end through the port's command line on
    phase 6's weights (bp, cc, mf): a directory of 384 CA-trace PDB files
    (length 40–500) as the structure database; 256 queries copied from
@@ -72,18 +70,15 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    ``spmm="auto"`` route (3-mode shared-trunk steps), the CNN fallback, saved contact maps, matrices, ``results.tsv`` and GO
    propagation over a mini OBO. Run A is ``cli.main`` in this process (B1/B2
    launches counted); run B is ``python -m metagenomic_deepfri_tpu_torch.cli``
-   in a subprocess with ``--skip-matrix`` (top-k fetch and the dense re-run
-   of overflows). Checks: both exit 0; every hit query aligned to its own
+   in a subprocess with ``--skip-matrix`` (no matrix files, the same
+   batches). Checks: both exit 0; every hit query aligned to its own
    structure and no random one, the filtered queries absent; 3 B1 and 1 B2
    launches per mode of each GCN batch that ``resolve_spmm`` sends to the
    fused kernels, none for a shared-trunk batch; 8 hit and 8 no-hit matrix rows within
    1e-4 of the ONNX graphs run on the host by the port's numpy executor
    (the GCN fed the saved aligned contact map); run B's ``results.tsv``
-   against run A's: byte-identical for every (protein, network, mode) block
-   that run B took from the top-k fetch, and for the blocks it re-ran in a
-   batch of another size the same rows with scores within one unit of the
-   4th decimal (cuBLAS results on the card depend on the padded batch size
-   in the last bits); rows for every mode, all ≥ 0.1, sorted; a larger
+   byte-identical to run A's; rows for every mode, all ≥ 0.1, sorted; a
+   larger
    ``results_propagated.tsv``. Prints both runs' wall time and
    queries/s (with run B's ``inference/gcn`` seconds), run A's stage
    profile, GCN batches and peak device memory,
@@ -102,9 +97,7 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    selenoproteins skipped; scores ≥ 0.1 and sorted; every served protein's
    rows equal run A's ``results.tsv`` rows (scores within one unit of the
    4th decimal, a term within that of 0.1 on one side only); B1/B2
-   launches as in phase 7 for every GCN batch the server ran; a
-   ``score_topk=256`` server gives the dense server's responses on 4
-   fixed requests. Prints
+   launches as in phase 7 for every GCN batch the server ran. Prints
    the cold latency, idle and loaded p50/p90/p99, proteins/s under load,
    requests coalesced per pass, the engine's share of the passes' time,
    the device's busy share of two load-sized passes under
@@ -179,8 +172,7 @@ try:
     from metagenomic_deepfri_tpu_torch.batching.buckets import (
         assign_bucket, bucket_plan, gcn_batch_size)
     from metagenomic_deepfri_tpu_torch.batching.engine import (
-        BatchedPredictor, ModelHandle, _expand_topk_host, _pad_batch,
-        _pad_batch_coords)
+        BatchedPredictor, ModelHandle, _pad_batch, _pad_batch_coords)
     from metagenomic_deepfri_tpu_torch.batching.spmm_table import \
         resolve_spmm
     from metagenomic_deepfri_tpu_torch.models import deepfri
@@ -233,7 +225,9 @@ P6_VERIFY_PROTEINS = 2
 # not saturate the logits; the biases then come from the scores.
 P6_HEAD_SCALE = 1e-3
 P6_ROUNDS = 3
-TOPK = 256
+# Terms whose median score sits on the threshold, in a head wider than
+# 2 * P6_NEAR_TERMS (bp); an eighth of the head otherwise.
+P6_NEAR_TERMS = 512
 SCORE_THRESHOLD = 0.1
 ROUTE_ATOL = 1e-4
 CNN_ATOL = 1e-5
@@ -257,8 +251,6 @@ P8_IDLE = 16
 P8_LOAD_REQUESTS = 48
 P8_LOAD_CLIENTS = 8
 P8_LOAD_SIZES = (1, 32)
-P8_TOPK_REQUESTS = 4
-P8_TOPK_SIZE = 16
 P8_FRESH_IDLE = 8
 P8_FRESH_TIMEOUT = 300
 # Phase 9: the benchmark verb and bench_utils.
@@ -508,7 +500,7 @@ def make_handles(dtype: str, dev):
     return handles
 
 
-def run_stream(engine, items, overflow_cb=None, modes=None):
+def run_stream(engine, items, modes=None):
     out = {m: {} for m in (modes or MODES)}
 
     def collect(part):
@@ -518,7 +510,7 @@ def run_stream(engine, items, overflow_cb=None, modes=None):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     n = engine.predict_stream(iter(items), net="gcn_coords", modes=modes,
-                              result_cb=collect, overflow_cb=overflow_cb)
+                              result_cb=collect)
     torch.cuda.synchronize()
     return out, n, time.perf_counter() - t0
 
@@ -942,10 +934,10 @@ def no_hit_sequences(n: int, seed: int) -> list:
 
 
 def near_threshold_terms(n_labels: int) -> int:
-    """Terms whose median score sits on the threshold: 2·K for a head that
-    top-k compacts (so some proteins overflow and some do not), an eighth
-    of the head otherwise."""
-    return 2 * TOPK if n_labels > 2 * TOPK else n_labels // 8
+    """Terms whose median score sits on the threshold: ``P6_NEAR_TERMS``
+    for a head wider than twice that, an eighth of the head otherwise."""
+    return (P6_NEAR_TERMS if n_labels > 2 * P6_NEAR_TERMS
+            else n_labels // 8)
 
 
 def calibrate_heads(handles: dict, logits) -> None:
@@ -1045,32 +1037,6 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def fetch_times(dev, reps: int = 50) -> dict:
-    """Milliseconds to bring one batch of bp scores (BATCH_CAP × 3992, on
-    the card) to dense host rows: the dense fetch against top-k on the card
-    plus the (value, index) fetch and the host expansion. Host clock
-    around synchronised calls, median of ``reps``, taken in turns."""
-    n_labels = MODES["bp"]
-    scores = torch.rand((BATCH_CAP, n_labels), device=dev)
-
-    def dense():
-        return scores.cpu().numpy()
-
-    def topk():
-        vals, idx = torch.topk(scores, TOPK, dim=-1, sorted=True)
-        return _expand_topk_host((vals.cpu().numpy(),
-                                  idx.to(torch.int32).cpu().numpy()),
-                                 n_labels, SCORE_THRESHOLD)
-
-    samples = {"dense_fetch_ms": [], "topk_fetch_ms": []}
-    for rep in range(reps + 1):
-        for name, fn in (("dense_fetch_ms", dense), ("topk_fetch_ms", topk)):
-            _, secs = timed(fn)
-            if rep:
-                samples[name].append(1e3 * secs)
-    return {name: float(np.median(v)) for name, v in samples.items()}
-
-
 def phase_models(dev, smi, items, weights):
     """Phase 6: the published model set, written to the folder ``weights``
     (phase 7 reads it again), through the whole engine; every check raises
@@ -1109,8 +1075,6 @@ def phase_models(dev, smi, items, weights):
                              spmm="fused")
     dense = BatchedPredictor(gcn_h, cnn_h, device=dev, batch_cap=BATCH_CAP,
                              spmm="dense")
-    topk = BatchedPredictor(gcn_h, device=dev, batch_cap=BATCH_CAP,
-                            spmm="dense", score_topk=TOPK)
     shared = sorted(dense._gcn_shared[0]) if dense._gcn_shared else []
     log(f"  shared trunk: {shared}")
     if shared != ["aa_embed", "lm", "lm_embed"] or not dense._multi_key(
@@ -1175,27 +1139,6 @@ def phase_models(dev, smi, items, weights):
     if not cnn_diff <= CNN_ATOL:
         raise AssertionError("CNN batch rows differ from unpadded runs")
 
-    flagged = set()
-    topk_out, _, _ = run_stream(topk, items, overflow_cb=lambda m, q: (
-        flagged.update(q) if m == "bp" else None))
-    want = {q for q, row in dense_out["bp"].items()
-            if (row >= SCORE_THRESHOLD).sum() >= TOPK}
-    topk_diff = max((float(np.abs(topk_out["bp"][q][row >= SCORE_THRESHOLD]
-                                  - row[row >= SCORE_THRESHOLD]).max(
-                                      initial=0.0))
-                     for q, row in dense_out["bp"].items()
-                     if q not in flagged), default=0.0)
-    above = [int((r >= SCORE_THRESHOLD).sum())
-             for r in dense_out["bp"].values()]
-    log(f"  top-k {TOPK} (bp, {MODES['bp']} terms): {len(flagged)} rows "
-        f"overflowed, {len(items) - len(flagged)} complete; terms ≥ "
-        f"{SCORE_THRESHOLD} a row: {min(above)}–{max(above)}; complete rows "
-        f"vs dense: max|Δ|={topk_diff:.3g}")
-    if flagged != want or not 0 < len(flagged) < len(items):
-        raise AssertionError("top-k overflow set differs from the dense rows")
-    if not topk_diff <= 1e-6:
-        raise AssertionError("top-k rows differ from the dense rows")
-
     def per_mode(eng):
         # one request per mode: the dense route then runs no shared step
         return sum(run_stream(eng, items, modes=[m])[2] for m in MODES)
@@ -1204,7 +1147,6 @@ def phase_models(dev, smi, items, weights):
         "fused_per_mode": lambda: run_stream(fused, items)[2],
         "dense_per_mode": lambda: per_mode(dense),
         "dense_multimode": lambda: run_stream(dense, items)[2],
-        "dense_multimode_topk": lambda: run_stream(topk, items)[2],
         "predict_gcn_multimode": lambda: timed(
             lambda: dense.predict_gcn(cmap_items))[1],
         "predict_gcn_per_mode": lambda: timed(
@@ -1220,8 +1162,6 @@ def phase_models(dev, smi, items, weights):
     log(f"  warm passes, median of {P6_ROUNDS} taken in turns "
         f"({len(items)} proteins, {len(MODES)} modes; CNN {len(seqs)} "
         f"sequences, {len(MODES)} modes): {json.dumps(rates)} on {smi}")
-    log(f"  bp fetch of one batch ({BATCH_CAP} × {MODES['bp']}): "
-        f"{json.dumps(fetch_times(dev))} on {smi}")
     return gcn_h
 
 def mini_obo(path: Path, n_terms: int) -> Path:
@@ -1329,72 +1269,6 @@ MODE_NAMES = {"bp": "GO Biological Process", "cc": "GO Cellular Component",
               "mf": "GO Molecular Function"}
 
 
-def rerun_groups(out: Path) -> set:
-    """(protein, network, mode name) of the rows that run B's top-k fetch
-    overflows (``TOPK`` or more scores ≥ the threshold in run A's dense
-    matrix, for heads wider than 2·``TOPK``): the pipeline re-runs them in
-    a batch of another size."""
-    groups = set()
-    for mode, n_labels in MODES.items():
-        if n_labels <= 2 * TOPK:
-            continue
-        with open(out / f"prediction_matrix_{mode}.tsv",
-                  encoding="utf-8") as f:
-            next(f)
-            for line in f:
-                qid, net, rest = line.rstrip("\n").split("\t", 2)
-                scores = np.asarray(rest.split("\t"), np.float32)
-                if (scores >= SCORE_THRESHOLD).sum() >= TOPK:
-                    groups.add((qid, net, MODE_NAMES[mode]))
-    return groups
-
-
-def compare_runs(out_a: Path, out_b: Path, rerun: set) -> dict:
-    """Check 5: run B's ``results.tsv`` against run A's. The blocks of
-    (protein, network, mode) come in the same order; a block run B took
-    from the top-k fetch of the same batch is byte-identical; a block it
-    re-ran densely in a batch of another size (``rerun``) has the same
-    rows but for scores within one unit of the 4th decimal, terms within
-    that of the threshold, and the order of near-ties."""
-    def blocks(path):
-        header, rows = read_tsv(path)
-        out = {}
-        for r in rows:
-            out.setdefault(tuple(r[:3]), []).append(r)
-        return header, out
-
-    (ha, a), (hb, b) = blocks(out_a / "results.tsv"), blocks(
-        out_b / "results.tsv")
-    if ha != hb or list(a) != list(b):
-        raise AssertionError("results.tsv: header or blocks differ")
-    stats = {"blocks": len(a), "rerun_blocks": 0, "rerun_rows_differing": 0,
-             "rerun_max_score_delta": 0.0}
-    for key, rows_a in a.items():
-        rows_b = b[key]
-        if key not in rerun:
-            if rows_a != rows_b:
-                raise AssertionError(f"results.tsv differs at {key}, which "
-                                     "was not re-run")
-            continue
-        stats["rerun_blocks"] += 1
-        stats["rerun_rows_differing"] += sum(x != y for x, y in zip(
-            rows_a, rows_b)) + abs(len(rows_a) - len(rows_b))
-        by_a = {r[3]: r for r in rows_a}
-        by_b = {r[3]: r for r in rows_b}
-        for term in by_a.keys() | by_b.keys():
-            ra, rb = by_a.get(term), by_b.get(term)
-            if ra is None or rb is None:
-                if float((ra or rb)[4]) > SCORE_THRESHOLD + P7_SCORE_ATOL:
-                    raise AssertionError(f"{key} {term}: row on one side")
-                continue
-            delta = abs(float(ra[4]) - float(rb[4]))
-            stats["rerun_max_score_delta"] = max(
-                stats["rerun_max_score_delta"], delta)
-            if ra[:4] + ra[5:] != rb[:4] + rb[5:] or delta > P7_SCORE_ATOL:
-                raise AssertionError(f"{key} {term}: {ra} vs {rb}")
-    return stats
-
-
 def check_results(out: Path, n_modes: int) -> int:
     """Check 6: rows for every mode, all ≥ the threshold, each (protein,
     network, mode) block sorted by score; then check 7. Returns the rows."""
@@ -1476,13 +1350,11 @@ def phase_predict(dev, smi, weights: Path, root: Path, device_arg: str,
     batches, n_fused = [], []
     real_run_batch = BatchedPredictor._run_batch
 
-    def spy(self, bucket, chunk, batch, modes, net="gcn_coords",
-            overflow_cb=None):
+    def spy(self, bucket, chunk, batch, modes, net="gcn_coords"):
         batches.append((net, bucket, batch, len(chunk)))
         if net == "gcn_coords":
             n_fused.append(fused_modes(self, bucket, modes))
-        return real_run_batch(self, bucket, chunk, batch, modes, net,
-                              overflow_cb)
+        return real_run_batch(self, bucket, chunk, batch, modes, net)
 
     out_a, out_b = root / "run_a", root / "run_b"
     profiling.reset()
@@ -1541,11 +1413,9 @@ def phase_predict(dev, smi, weights: Path, root: Path, device_arg: str,
     if proc.returncode != 0:
         log(proc.stdout[-4000:] + proc.stderr[-4000:])
         raise AssertionError(f"run B exited {proc.returncode}")
-    reruns = [ln for ln in proc.stdout.splitlines() if "Re-running" in ln]
     log(f"  run B (subprocess, --skip-matrix): {secs_b:.2f} s, "
         f"{n_queries / secs_b:.2f} queries/s end to end, inference/gcn "
-        f"{inference_gcn_s(proc.stdout)} s on {smi}; "
-        f"{reruns[0].split(':: ')[-1] if reruns else 'no dense re-run'}")
+        f"{inference_gcn_s(proc.stdout)} s on {smi}")
     if parent:
         parent_run_b(parent, argv, root / "run_b_parent", smi)
 
@@ -1579,15 +1449,12 @@ def phase_predict(dev, smi, weights: Path, root: Path, device_arg: str,
     if not oracle <= P7_ORACLE_ATOL:
         raise AssertionError("prediction matrix differs from the ONNX graph")
 
-    # Check 5: run B (top-k fetch, dense re-run of overflows) against run A.
-    if (out_a / "alignment_summary.tsv").read_bytes() != \
-            (out_b / "alignment_summary.tsv").read_bytes():
-        raise AssertionError("run B's alignment summary differs from A's")
-    same = (out_a / "results.tsv").read_bytes() == \
-        (out_b / "results.tsv").read_bytes()
-    stats = compare_runs(out_a, out_b, rerun_groups(out_a))
-    log(f"  run B's results.tsv vs run A's: byte-identical {same}; "
-        f"{json.dumps(stats)} (re-run blocks held to {P7_SCORE_ATOL:.4g})")
+    # Check 5: run B (--skip-matrix: the same batches) against run A.
+    for name in ("alignment_summary.tsv", "results.tsv"):
+        if (out_a / name).read_bytes() != (out_b / name).read_bytes():
+            raise AssertionError(f"run B's {name} differs from run A's")
+    log("  run B's alignment_summary.tsv and results.tsv: byte-identical "
+        "to run A's")
     # Checks 6 and 7.
     n_rows = check_results(out_a, len(MODES))
     log(f"  results.tsv: {n_rows} rows, every mode, all ≥ "
@@ -1669,7 +1536,7 @@ def phase_serve(dev, smi, weights: Path, root: Path, inputs, device_arg: str,
     phase 7's structures, over its Unix socket, in this process (its
     warmup waited for and its launches counted apart; then a cold
     request, idle single requests, concurrent load; the served rows held
-    to run A's results.tsv, and a top-k server to the dense one), then the
+    to run A's results.tsv), then the
     ``serve`` verb in a fresh process (the checkout at ``parent`` too,
     before and after this one's, when given). Returns the B1/B2 launches
     of the phase."""
@@ -1783,13 +1650,12 @@ def serve_in_process(dev, smi, weights: Path, root: Path, inputs,
     real_run_batch = BatchedPredictor._run_batch
     secs = {"engine": 0.0, "passes": 0.0}  # host clock, summed
 
-    def spy(self, bucket, chunk, batch, modes, net="gcn_coords",
-            overflow_cb=None):
+    def spy(self, bucket, chunk, batch, modes, net="gcn_coords"):
         if net == "gcn_coords":
             gcn_batch_modes.append(fused_modes(self, bucket, modes))
         t = time.perf_counter()
-        out = real_run_batch(self, bucket, chunk, batch, modes, net,
-                             overflow_cb)  # ends with the fetch to the host
+        out = real_run_batch(self, bucket, chunk, batch, modes,
+                             net)  # ends with the fetch to the host
         secs["engine"] += time.perf_counter() - t
         return out
 
@@ -1872,26 +1738,6 @@ def serve_in_process(dev, smi, weights: Path, root: Path, inputs,
         profiled_s = time.perf_counter() - t0
         busy_s = sum(e.self_device_time_total
                      for e in prof.key_averages()) / 1e6
-
-        fixed = [request(P8_TOPK_SIZE) for _ in range(P8_TOPK_REQUESTS)]
-        topk = AnnotationServer(weights, score_topk=TOPK, **kw)
-        topk_worst = 0.0
-        for req in fixed:
-            want, got = srv.annotate(dict(req)), topk.annotate(dict(req))
-            worst = max(worst, check_response(req, got, hits, ref))
-            for qid, entry in want["results"].items():
-                if {k: v for k, v in entry.items() if k != "scores"} != \
-                        {k: v for k, v in got["results"][qid].items()
-                         if k != "scores"}:
-                    raise AssertionError(f"top-k server: {qid} metadata")
-                for mode, rows in entry["scores"].items():
-                    topk_worst = max(topk_worst, rows_agree(
-                        {t: s for t, s, _ in rows},
-                        {t: s for t, s, _ in got["results"][qid]["scores"][
-                            mode]}, f"top-k {qid}/{mode}"))
-        # the top-k server's warm launches, once it has ended
-        topk_warm = (warmup_report(warm[1])["launches"] if len(warm) > 1
-                     else no_launches())
     finally:
         BatchedPredictor._run_batch = real_run_batch
         srv.shutdown()
@@ -1904,10 +1750,9 @@ def serve_in_process(dev, smi, weights: Path, root: Path, inputs,
         raise AssertionError("the server thread did not stop")
 
     gcn_modes = sum(gcn_batch_modes)
-    expect_launches(launches, plus(gcn_launches(gcn_modes), topk_warm),
+    expect_launches(launches, gcn_launches(gcn_modes),
                     f"phase 8, {len(gcn_batch_modes)} GCN batches "
-                    f"({gcn_modes} batch-modes on the fused kernels), and "
-                    f"the top-k server's warmup's {topk_warm}")
+                    f"({gcn_modes} batch-modes on the fused kernels)")
     load_ms = [ms for _, ms in load]
     n_load = sum(len(r) for r in load_reqs)
     stats = {
@@ -1925,9 +1770,7 @@ def serve_in_process(dev, smi, weights: Path, root: Path, inputs,
         "device_busy_s": busy_s, "device_busy_share": busy_s / profiled_s,
         "peak_device_gib": peak}
     log(f"  served rows vs run A's results.tsv: max|Δ|={worst:.3g} (atol "
-        f"{P7_SCORE_ATOL:.4g}); top-k {TOPK} server vs dense on "
-        f"{len(fixed)} requests: max|Δ|={topk_worst:.3g} (overflows re-run "
-        f"densely: {topk._dense_engine is not None})")
+        f"{P7_SCORE_ATOL:.4g})")
     log(f"  serving {json.dumps(stats)} on {smi}")
     return plus(launches, warm_8["launches"])
 

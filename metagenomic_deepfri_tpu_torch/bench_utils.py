@@ -339,7 +339,7 @@ def run_multimode_benchmark(bucket: int = 512, batches: int = 4,
                             compute_dtype: str = "bfloat16", seed: int = 0,
                             out_path=None, *, device, reps: int = 6) -> str:
     """3-mode (bp/cc/mf) GCN pass with the shared-LM trunk against per-mode
-    dispatch, and with the top-k 256 fetch.
+    dispatch.
 
     The published models share one frozen LSTM-LM, so the engine's
     shared-trunk step computes the LM and the adjacency once a batch. Reports
@@ -355,8 +355,6 @@ def run_multimode_benchmark(bucket: int = 512, batches: int = 4,
         raise AssertionError("the shared LSTM-LM was not detected")
     control = BatchedPredictor(handles, device=dev, buckets=(bucket,))
     control._gcn_shared = None  # identical engine, per-mode dispatch
-    topk_engine = BatchedPredictor(handles, device=dev, buckets=(bucket,),
-                                   score_topk=256)
 
     batch = gcn_batch_size(bucket)
     lo, hi = _length_range(bucket)
@@ -376,10 +374,8 @@ def run_multimode_benchmark(bucket: int = 512, batches: int = 4,
 
     t_shared, p_shared = timed(shared_engine)
     t_control, p_control = timed(control)
-    t_topk, p_topk = timed(topk_engine)
     n_ann = len(items) * len(modes)
-    aps_shared, aps_control, aps_topk = (n_ann / t for t in (
-        t_shared, t_control, t_topk))
+    aps_shared, aps_control = n_ann / t_shared, n_ann / t_control
     dev_only = _device_only_multimode(shared_engine, control, modes, bucket,
                                       batch, reps=reps, seed=seed,
                                       device=dev)
@@ -397,11 +393,7 @@ def run_multimode_benchmark(bucket: int = 512, batches: int = 4,
                    "elapsed_passes_s": [round(e, 3) for e in p_shared]},
         "per_mode": {"annotations_per_sec": round(aps_control, 1),
                      "elapsed_passes_s": [round(e, 3) for e in p_control]},
-        "shared_topk256": {"annotations_per_sec": round(aps_topk, 1),
-                           "elapsed_passes_s": [round(e, 3)
-                                                for e in p_topk]},
         "speedup": round(aps_shared / aps_control, 3),
-        "speedup_with_topk": round(aps_topk / aps_control, 3),
         "device_only": dev_only,
         "flops_per_protein_all_modes": round(flops),
         "mfu_device_only_shared": (
@@ -411,13 +403,12 @@ def run_multimode_benchmark(bucket: int = 512, batches: int = 4,
     _write(out_path, payload)
     return json.dumps({
         "metric": "gcn_3mode_annotations_per_sec_per_chip",
-        "value": round(aps_topk, 1), "unit": "annotations/s",
-        "vs_baseline": round((aps_topk / len(modes))
+        "value": round(aps_shared, 1), "unit": "annotations/s",
+        "vs_baseline": round((aps_shared / len(modes))
                              / REFERENCE_GCN_PROTEINS_PER_SEC, 2),
         "detail": {"per_mode_dispatch_aps": round(aps_control, 1),
                    "shared_trunk_aps": round(aps_shared, 1),
                    "shared_trunk_speedup": payload["speedup"],
-                   "speedup_with_topk": payload["speedup_with_topk"],
                    "device_only_shared_aps": dev_only["shared_aps"],
                    "device_only_per_mode_aps": dev_only["per_mode_aps"],
                    "device_only_speedup": dev_only["speedup"],

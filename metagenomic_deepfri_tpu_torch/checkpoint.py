@@ -1,7 +1,8 @@
 """Resumable prediction checkpoints.
 
-A copy of ``metagenomic_deepfri_tpu/checkpoint.py``: parts and overflow
-logs written by either package load in the other.
+Counterpart of ``metagenomic_deepfri_tpu/checkpoint.py``: parts written by
+either package load in the other, and so does the JAX package's
+``overflow.log``.
 
 The reference has file-existence caching for database artifacts but NO
 mid-inference resume — a killed prediction loop restarts from scratch
@@ -15,11 +16,13 @@ interrupted catalogue annotation resumes where it stopped:
 - on restart, :meth:`PredictionCheckpoint.completed` reports which queries
   already have every requested mode for a network, and the pipeline excludes
   them from the work list;
-- queries whose streamed top-k scores were threshold-INcomplete (the engine's
-  ``overflow_cb``) are recorded in an append-only ``overflow.log`` the moment
-  they are detected, and struck out again once the dense re-run has written
-  their corrected scores — so a crash between streaming and the re-run still
-  re-computes them densely on resume instead of trusting the truncated rows;
+- the port's engine always returns dense score rows, so it writes no
+  ``overflow.log``; one left by an earlier run (the JAX package's top-k
+  fetch, or an older port's) marks with ``OVER`` the rows that were still
+  truncated when it stopped. Their vectors are dropped on every load (the
+  log is never rewritten), so :meth:`~PredictionCheckpoint.completed`
+  leaves those queries out and the resumed run recomputes them in its main
+  stream;
 - the checkpoint directory is removed after ``results.tsv`` is written
   (unless ``keep=True``).
 """
@@ -45,7 +48,6 @@ class PredictionCheckpoint:
         self.dir = pathlib.Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self._scores: Dict[str, Dict[str, Dict[str, np.ndarray]]] = {}
-        self._overflow: Dict[str, Dict[str, Set[str]]] = {}
         self._n_parts = 0
         self._load_existing()
 
@@ -69,32 +71,32 @@ class PredictionCheckpoint:
                     for q in net.values())
             logger.info("Resumed prediction checkpoint: %d score vectors "
                         "from %d parts.", n, len(parts))
-        log = self.dir / "overflow.log"
-        if log.exists():
-            for line in log.read_text(encoding="utf-8").splitlines():
-                fields = line.split(_SEP)
-                if len(fields) != 4:  # truncated trailing line from a crash
-                    continue
-                op, net, mode, qid = fields
-                pend = self._overflow.setdefault(net, {}).setdefault(
-                    mode, set())
-                if op == "OVER":
-                    pend.add(qid)
-                elif op == "DONE":
-                    pend.discard(qid)
-            n_pend = sum(len(q) for net in self._overflow.values()
-                         for q in net.values())
-            if n_pend:
-                logger.info("Resumed %d pending top-k overflow entries "
-                            "(will be re-run with dense score fetch).",
-                            n_pend)
+        self._drop_pending_overflow()
 
-    def _append_overflow(self, op: str, net: str, mode: str,
-                         qids: Iterable[str]) -> None:
-        with open(self.dir / "overflow.log", "a", encoding="utf-8") as f:
-            for qid in qids:
-                f.write(f"{op}{_SEP}{net}{_SEP}{mode}{_SEP}{qid}\n")
-            f.flush()
+    def _drop_pending_overflow(self) -> None:
+        """Drop the score vectors that an earlier run's ``overflow.log``
+        still marks ``OVER`` (a ``DONE`` line strikes a mark out; a
+        truncated last line is ignored)."""
+        log = self.dir / "overflow.log"
+        if not log.exists():
+            return
+        pending: Set[tuple] = set()
+        for line in log.read_text(encoding="utf-8").splitlines():
+            fields = line.split(_SEP)
+            if len(fields) != 4:  # truncated trailing line from a crash
+                continue
+            op, net, mode, qid = fields
+            if op == "OVER":
+                pending.add((net, mode, qid))
+            elif op == "DONE":
+                pending.discard((net, mode, qid))
+        dropped = sum(
+            self._scores.get(net, {}).get(mode, {}).pop(qid, None) is not None
+            for net, mode, qid in pending)
+        if pending:
+            logger.info("Checkpoint overflow.log: dropped %d truncated score "
+                        "vector(s) of %d pending mark(s); those queries are "
+                        "recomputed.", dropped, len(pending))
 
     def add(self, net: str, partial: Dict[str, Dict[str, np.ndarray]]) -> None:
         """Flush one engine result group ({mode: {qid: scores}}) to disk."""
@@ -113,38 +115,6 @@ class PredictionCheckpoint:
         np.savez(tmp, **payload)
         tmp.rename(part)  # atomic publish
         self._n_parts += 1
-
-    def mark_overflow(self, net: str, mode: str,
-                      qids: Iterable[str]) -> None:
-        """Persist that ``qids``'s streamed top-k rows are incomplete.
-
-        Written before the dense re-run happens, so a crash in between
-        leaves the marks on disk and :meth:`overflow` re-surfaces them on
-        resume.
-        """
-        qids = [q for q in qids]
-        if not qids:
-            return
-        self._overflow.setdefault(net, {}).setdefault(mode, set()).update(
-            qids)
-        self._append_overflow("OVER", net, mode, qids)
-
-    def resolve_overflow(self, net: str, mode: str,
-                         qids: Iterable[str]) -> None:
-        """Strike out overflow marks whose dense scores were checkpointed."""
-        qids = [q for q in qids]
-        if not qids:
-            return
-        pend = self._overflow.get(net, {}).get(mode)
-        if pend:
-            pend.difference_update(qids)
-        self._append_overflow("DONE", net, mode, qids)
-
-    def overflow(self, net: str) -> Dict[str, Set[str]]:
-        """Pending (not yet densely re-run) overflow qids: {mode: {qid}}."""
-        return {mode: set(qids)
-                for mode, qids in self._overflow.get(net, {}).items()
-                if qids}
 
     # -- queries -------------------------------------------------------------
 

@@ -296,9 +296,12 @@ def predict_protein_function(
 
     ``device`` (``"cuda"``, ``"cuda:1"``, ``"cpu"``) is where the engine
     places the models and runs every batch; it is never inferred. A list
-    (``["cuda:0", "cuda:1"]`` or ``"cuda:0,cuda:1"``) runs both engines,
-    the streaming one and the dense re-run of top-k overflows,
+    (``["cuda:0", "cuda:1"]`` or ``"cuda:0,cuda:1"``) runs the engine
     data-parallel over those devices.
+
+    ``skip_matrix`` skips only the prediction-matrix files: scores,
+    ``results.tsv`` and the propagated file come from the same batches as
+    with the matrices.
     """
     deepfri_models_config = load_deepfri_config(weights)
     deepfri_processing_modes = _initialize_processing_modes(
@@ -400,32 +403,11 @@ def predict_protein_function(
     with profiling.stage("load/models"):
         gcn_handles, cnn_handles, _ = load_models(weights,
                                                   deepfri_processing_modes)
-    # Under --skip-matrix only scores ≥ SCORE_THRESHOLD reach results.tsv,
-    # so large heads (BP: 3992 terms) need not ship their dense float32
-    # score matrix over the link: the engine fetches top-k (exact values)
-    # and flags the rare proteins with more than k above-threshold terms,
-    # which are re-run densely below. With matrices requested, every score
-    # must be exact — compaction stays off.
-    score_topk = 256 if skip_matrix else None
     predictor = BatchedPredictor(gcn_models=gcn_handles,
                                  cnn_models=cnn_handles,
                                  contact_threshold=angstrom_contact_threshold,
                                  generated_contacts=generate_contacts,
-                                 score_topk=score_topk,
-                                 score_threshold=SCORE_THRESHOLD,
                                  device=device)
-    overflow: Dict[str, Dict[str, set]] = {"gcn": {}, "cnn": {}}
-
-    def _overflow_collector(net: str):
-        # Marks are persisted (ckpt.mark_overflow) the moment the engine
-        # reports them: the streamed checkpoint part for these qids holds
-        # top-k-truncated rows, so a crash before the dense re-run must
-        # leave a durable record that they still need dense scores.
-        def cb(mode, qids):
-            qids = set(qids)
-            overflow[net].setdefault(mode, set()).update(qids)
-            ckpt.mark_overflow(net, mode, sorted(qids))
-        return cb
 
     # Streaming checkpoint: a killed run resumes here instead of recomputing
     # every score (the reference restarts inference from scratch).
@@ -479,8 +461,7 @@ def predict_protein_function(
             n_gcn = predictor.predict_stream(
                 _items_iter(), net="gcn_coords", modes=list(gcn_handles),
                 result_cb=lambda part: ckpt.add("gcn", part),
-                progress_cb=gcn_bar.update,
-                overflow_cb=_overflow_collector("gcn"))
+                progress_cb=gcn_bar.update)
         profiling.add_items("inference/gcn", items=n_gcn)
     finally:
         stop.set()
@@ -543,51 +524,11 @@ def predict_protein_function(
             pending_cnn, modes=list(cnn_handles),
             progress_cb=lambda n: bar.update(
                 n * len(deepfri_processing_modes)),
-            result_cb=lambda part: ckpt.add("cnn", part),
-            overflow_cb=_overflow_collector("cnn"))
+            result_cb=lambda part: ckpt.add("cnn", part))
     bar.close()
     gcn_scores = {m: {} for m in gcn_handles}
     ckpt.merge_into("gcn", gcn_scores)
     ckpt.merge_into("cnn", cnn_scores)
-
-    # Dense re-run of top-k overflows: proteins with > score_topk terms at
-    # or above the threshold get exact threshold-complete rows (their
-    # checkpoint parts are re-written, so a crash-resume also sees the
-    # corrected scores — later parts win on reload). Pending marks from a
-    # previous crashed run (persisted in overflow.log before the crash) are
-    # folded in, so resumed runs re-compute those qids densely too.
-    for net in ("gcn", "cnn"):
-        for mode, qids in ckpt.overflow(net).items():
-            overflow[net].setdefault(mode, set()).update(qids)
-    if any(overflow["gcn"].values()) or any(overflow["cnn"].values()):
-        n_over = sum(len(q) for d in overflow.values() for q in d.values())
-        logger.info("Re-running %d protein/mode pair(s) with dense score "
-                    "fetch (top-%d was threshold-incomplete for them).",
-                    n_over, score_topk)
-        dense_predictor = BatchedPredictor(
-            gcn_models=gcn_handles, cnn_models=cnn_handles,
-            contact_threshold=angstrom_contact_threshold,
-            generated_contacts=generate_contacts, device=device)
-        coords_by_qid = {aln.query_name: (aln.query_sequence, proj, ins)
-                         for aln, (proj, ins) in aligned_cmaps}
-        for mode, qids in overflow["gcn"].items():
-            over_items = [(q,) + coords_by_qid[q] for q in sorted(qids)
-                          if q in coords_by_qid]
-            if over_items:
-                fixed = dense_predictor.predict_gcn_from_coords(
-                    over_items, modes=[mode])
-                gcn_scores[mode].update(fixed[mode])
-                ckpt.add("gcn", fixed)
-                ckpt.resolve_overflow("gcn", mode, sorted(fixed[mode]))
-        cnn_seq = dict(cnn_items)
-        for mode, qids in overflow["cnn"].items():
-            over_items = [(q, cnn_seq[q]) for q in sorted(qids)
-                          if q in cnn_seq]
-            if over_items:
-                fixed = dense_predictor.predict_cnn(over_items, modes=[mode])
-                cnn_scores[mode].update(fixed[mode])
-                ckpt.add("cnn", fixed)
-                ckpt.resolve_overflow("cnn", mode, sorted(fixed[mode]))
 
     # ---- prediction matrices (reference pipeline.py:540-655) -----------------
     matrix_jobs_by_mode: Dict[str, List[Dict[str, Any]]] = {}

@@ -116,9 +116,6 @@ class AnnotationServer:
         processing_modes: subset of bp/cc/mf/ec (default: all in config).
         db_workdir: where database indices are built (default: next to each
             database, like the pipeline).
-        score_topk: the engine's top-k score fetch; proteins with more terms
-            above the threshold re-run through a dense-fetch engine, so
-            responses are the same either way.
         obo_path: a GO OBO file; responses then carry each protein's
             propagated ancestor terms (``propagated_scores``).
         device: where every engine of the server runs (``"cuda"``,
@@ -143,7 +140,6 @@ class AnnotationServer:
                  scoring_matrix: str = "auto",
                  coord_cache: int = 4096,
                  threads: int = 1,
-                 score_topk: Optional[int] = None,
                  obo_path=None, *,
                  device):
         config = load_deepfri_config(weights)
@@ -151,16 +147,10 @@ class AnnotationServer:
                                      if config.get("gcn", {}).get(m)]
         self.modes = _initialize_processing_modes(list(modes), config)
         gcn, cnn, _ = load_models(weights, self.modes)
-        self._engine_kwargs = dict(
+        self.engine = BatchedPredictor(
             gcn_models=gcn, cnn_models=cnn, device=device,
             contact_threshold=contact_threshold,
             generated_contacts=generated_contacts)
-        # Responses keep only scores ≥ SCORE_THRESHOLD, so the top-k fetch is
-        # response-identical; overflowed proteins re-run through a lazily
-        # built dense-fetch engine (annotate).
-        self.engine = BatchedPredictor(**self._engine_kwargs,
-                                       score_topk=score_topk,
-                                       score_threshold=SCORE_THRESHOLD)
         # The routes at bucket 512 (the JAX server's choice), warmed on a
         # background thread while the server loads its databases; the CPU
         # has no first-use costs to pay.
@@ -175,7 +165,6 @@ class AnnotationServer:
 
         if self._warmup_future is not None:
             self._warmup_future.add_done_callback(_log_warmup_failure)
-        self._dense_engine: Optional[BatchedPredictor] = None
         self.max_eval = max_eval
         self.min_ident = min_ident
         self.min_coverage = min_coverage
@@ -273,41 +262,10 @@ class AnnotationServer:
 
         cnn_items = [(qid, seq) for qid, seq in remaining.items()]
 
-        overflow: Dict[str, Dict[str, set]] = {"gcn": {}, "cnn": {}}
-
-        def _overflow(net):
-            def cb(mode, qids):
-                overflow[net].setdefault(mode, set()).update(qids)
-            return cb
-
         gcn_scores = (self.engine.predict_gcn_from_coords(
-            gcn_items, modes=self.modes, overflow_cb=_overflow("gcn"))
-            if gcn_items else {})
-        cnn_scores = (self.engine.predict_cnn(
-            cnn_items, modes=self.modes, overflow_cb=_overflow("cnn"))
-            if cnn_items else {})
-
-        # Dense re-run of top-k overflows: the response carries every
-        # above-threshold term.
-        if any(overflow["gcn"].values()) or any(overflow["cnn"].values()):
-            if self._dense_engine is None:
-                self._dense_engine = BatchedPredictor(**self._engine_kwargs)
-            gcn_by_qid = {it[0]: it for it in gcn_items}
-            for mode, qids in overflow["gcn"].items():
-                fix_items = [gcn_by_qid[q] for q in sorted(qids)
-                             if q in gcn_by_qid]
-                if fix_items:
-                    fixed = self._dense_engine.predict_gcn_from_coords(
-                        fix_items, modes=[mode])
-                    gcn_scores[mode].update(fixed[mode])
-            cnn_by_qid = dict(cnn_items)
-            for mode, qids in overflow["cnn"].items():
-                fix_items = [(q, cnn_by_qid[q]) for q in sorted(qids)
-                             if q in cnn_by_qid]
-                if fix_items:
-                    fixed = self._dense_engine.predict_cnn(
-                        fix_items, modes=[mode])
-                    cnn_scores[mode].update(fixed[mode])
+            gcn_items, modes=self.modes) if gcn_items else {})
+        cnn_scores = (self.engine.predict_cnn(cnn_items, modes=self.modes)
+                      if cnn_items else {})
 
         results: Dict[str, dict] = {}
         for qid in queries:

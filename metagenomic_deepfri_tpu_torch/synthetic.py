@@ -169,9 +169,9 @@ def threshold_head_bias(margins: np.ndarray, threshold: float, near: int,
     chosen terms so that their median score over the catalogue sits on
     ``threshold`` (about half the proteins clear it on each), and every
     other term to 10 logits below its largest margin, so below
-    sigmoid(-10) ≈ 4.5e-5 on every protein of the catalogue. A top-k fetch
-    with K ≈ near / 2 then overflows on some proteins and is complete on
-    the rest.
+    sigmoid(-10) ≈ 4.5e-5 on every protein of the catalogue. The JAX
+    package's top-k fetch with K ≈ near / 2 then overflows on some proteins
+    and is complete on the rest.
     """
     margins = np.asarray(margins, np.float64)
     picked = np.random.default_rng(seed).choice(

@@ -157,8 +157,11 @@ def test_multimode_benchmark(tiny_batches, repo_root_untouched, tmp_path):
     assert min(d["per_mode_dispatch_aps"], d["shared_trunk_aps"],
                d["device_only_shared_aps"],
                d["device_only_per_mode_aps"]) > 0
+    assert line["value"] == d["shared_trunk_aps"]
+    assert "speedup_with_topk" not in d
     report = json.loads(out.read_text())
     assert report["modes"] == ["bp", "cc", "mf"]
+    assert "shared_topk256" not in report
     assert report["mfu_device_only_shared"] is None
     cfgs = {m: JaxGCNConfig(n_labels=n)
             for m, n in (("bp", 3992), ("cc", 320), ("mf", 489))}

@@ -315,12 +315,11 @@ def _fused_modes_per_batch(monkeypatch) -> list:
     seen = []
     real = BatchedPredictor._run_batch
 
-    def spy(self, bucket, chunk, batch, modes, net="gcn_coords",
-            overflow_cb=None):
+    def spy(self, bucket, chunk, batch, modes, net="gcn_coords"):
         if net == "gcn_coords":
             seen.append(0 if self._multi_key(modes) else sum(
                 self._mode_spmm(m, bucket) == "fused" for m in modes))
-        return real(self, bucket, chunk, batch, modes, net, overflow_cb)
+        return real(self, bucket, chunk, batch, modes, net)
 
     monkeypatch.setattr(BatchedPredictor, "_run_batch", spy)
     return seen

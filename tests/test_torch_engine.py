@@ -449,33 +449,6 @@ def test_predict_gcn_equals_coords_path(spmm):
                  engine.predict_gcn_from_coords(items), 1e-5)
 
 
-def test_predict_gcn_topk_overflow_as_coords_path():
-    """``score_topk`` with every score above the threshold: the overflow
-    report of ``predict_gcn`` names the ids the coordinates path names."""
-    from metagenomic_deepfri_tpu_torch.ops.cmap_align import \
-        aligned_contacts_from_coords
-
-    _, torch_h = _handles(shared_lm=False)
-    engine = BatchedPredictor(torch_h, device="cpu", buckets=BUCKETS,
-                              batch_cap=4, score_topk=1, score_threshold=0.0)
-    items = _items()
-    dense = [(qid, seq, aligned_contacts_from_coords(
-        torch.from_numpy(p)[None], torch.from_numpy(i)[None],
-        torch.tensor([len(seq)], dtype=torch.int32), 6.0, 2)[0].numpy())
-        for qid, seq, p, i in items]
-    reports = {"gcn": set(), "coords": set()}
-    out = engine.predict_gcn(dense, overflow_cb=lambda m, q: reports[
-        "gcn"].update((m, qid) for qid in q))
-    ref = engine.predict_gcn_from_coords(items, overflow_cb=lambda m, q:
-                                         reports["coords"].update(
-                                             (m, qid) for qid in q))
-    assert reports["gcn"] == reports["coords"] == {
-        (m, it[0]) for m in LABELS for it in items}
-    _assert_rows(out, ref, 1e-5)
-    for mode in LABELS:  # top-1 rows: one score kept, the rest 0.0
-        assert all(np.count_nonzero(r) <= 1 for r in out[mode].values())
-
-
 @pytest.mark.parametrize("shared_lm", [False, True])
 def test_predict_gcn_two_devices_match_one(monkeypatch, shared_lm):
     _, torch_h = _handles(shared_lm)
@@ -609,7 +582,7 @@ def test_warmup_plan_is_dispatch(monkeypatch, device, cap, expected, routes,
 
 def test_warmup_leaves_scores_and_callbacks_alone(monkeypatch):
     """A finished background warmup changes no score, and no warm id
-    reaches ``result_cb``, ``progress_cb`` or ``overflow_cb``; TF32 stays
+    reaches ``result_cb`` or ``progress_cb``; TF32 stays
     off (the warm thread never saves and restores the flags)."""
     from metagenomic_deepfri_tpu_torch import precision
 
@@ -634,7 +607,7 @@ def test_warmup_leaves_scores_and_callbacks_alone(monkeypatch):
                      torch.backends.cudnn.allow_tf32,
                      torch.get_float32_matmul_precision())
     assert highest_f32_precision_active()
-    ids, progress, overflow = set(), [], []
+    ids, progress = set(), []
     got = {m: {} for m in LABELS}
 
     def on_result(part):
@@ -643,15 +616,13 @@ def test_warmup_leaves_scores_and_callbacks_alone(monkeypatch):
             got[m].update(rows)
 
     engine.predict_stream(iter(items), result_cb=on_result,
-                          progress_cb=progress.append,
-                          overflow_cb=lambda m, q: overflow.append(q))
+                          progress_cb=progress.append)
     got_cnn = engine.predict_cnn([it[:2] for it in items],
                                  result_cb=lambda part: ids.update(
                                      q for rows in part.values()
                                      for q in rows),
                                  progress_cb=progress.append)
     assert ids == {it[0] for it in items} and sum(progress) == 2 * len(items)
-    assert not overflow
     for mode in LABELS:
         for qid in want[mode]:
             assert np.array_equal(got[mode][qid], want[mode][qid])

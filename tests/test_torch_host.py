@@ -162,28 +162,76 @@ def _scores(seed, ids, n=5):
     (jax_checkpoint.PredictionCheckpoint, checkpoint.PredictionCheckpoint)],
     ids=["port_to_jax", "jax_to_port"])
 def test_checkpoint_cross_loads(writer, reader, tmp_path):
-    """Parts and the overflow log written by one package resume in the
-    other: scores, completed sets, pending overflow marks, merge order."""
+    """Parts written by one package resume in the other: scores, completed
+    sets, merge order. The port writes no overflow marks; the ids that the
+    JAX package's log leaves marked are not completed in the port."""
+    jax_writes = writer is jax_checkpoint.PredictionCheckpoint
     w = writer(tmp_path / "ckpt")
     w.add("gcn", {"mf": _scores(0, ["a", "b"]), "bp": _scores(1, ["a", "b"])})
     w.add("gcn", {"mf": _scores(2, ["c"]), "bp": _scores(3, ["c"])})
     w.add("cnn", {"mf": _scores(4, ["d"])})
-    w.mark_overflow("gcn", "bp", ["a", "c"])
-    w.mark_overflow("cnn", "mf", ["d"])
-    w.resolve_overflow("cnn", "mf", ["d"])
-    w.add("gcn", {"bp": _scores(5, ["a"])})  # a later part wins on reload
+    if jax_writes:
+        w.mark_overflow("gcn", "bp", ["a", "c"])
+        w.mark_overflow("cnn", "mf", ["d"])
+        w.resolve_overflow("cnn", "mf", ["d"])
+    else:
+        assert not hasattr(w, "mark_overflow")
+    w.add("gcn", {"bp": _scores(5, ["b"])})  # a later part wins on reload
+    assert (tmp_path / "ckpt" / "overflow.log").exists() == jax_writes
 
     r = reader(tmp_path / "ckpt")
-    assert r.completed("gcn", ["mf", "bp"]) == {"a", "b", "c"}
+    pending = {"a", "c"} if jax_writes else set()
+    assert r.completed("gcn", ["mf", "bp"]) == {"a", "b", "c"} - pending
     assert r.completed("cnn", ["mf"]) == {"d"}
-    assert r.overflow("gcn") == {"bp": {"a", "c"}}
-    assert not any(r.overflow("cnn").values())
+    if not jax_writes:
+        assert not any(r.overflow("gcn").values())
     merged = {"mf": {}, "bp": {}}
     r.merge_into("gcn", merged)
-    assert np.array_equal(merged["bp"]["a"], _scores(5, ["a"])["a"])
+    assert np.array_equal(merged["bp"]["b"], _scores(5, ["b"])["b"])
     assert np.array_equal(merged["mf"]["c"], _scores(2, ["c"])["c"])
+    assert set(merged["bp"]) == {"a", "b", "c"} - pending
     r.remove()
     assert not (tmp_path / "ckpt").exists()
+
+
+def test_checkpoint_drops_vectors_the_jax_overflow_log_marks(tmp_path,
+                                                            caplog):
+    """A directory of parts and an ``overflow.log`` written by the JAX
+    package's checkpoint: the port's reader drops exactly the vectors still
+    marked ``OVER`` (so those ids leave ``completed()``) and keeps every
+    other vector as the JAX reader sees it, a mark struck out by ``DONE``
+    and a truncated last line included."""
+    import logging
+
+    d = tmp_path / "ckpt"
+    w = jax_checkpoint.PredictionCheckpoint(d)
+    w.add("gcn", {"mf": _scores(0, ["a", "b", "c"]),
+                  "bp": _scores(1, ["a", "b", "c"])})
+    w.add("cnn", {"mf": _scores(2, ["d", "e"]), "bp": _scores(3, ["d", "e"])})
+    w.mark_overflow("gcn", "bp", ["a"])
+    w.mark_overflow("cnn", "mf", ["d", "e"])
+    w.add("cnn", {"mf": _scores(4, ["e"])})  # e's dense re-run ...
+    w.resolve_overflow("cnn", "mf", ["e"])   # ... struck out
+    w.mark_overflow("gcn", "mf", ["zz"])     # marked, never written
+    with open(d / "overflow.log", "a", encoding="utf-8") as f:
+        f.write("OVER|gcn|mf")              # torn by a crash
+    ref = jax_checkpoint.PredictionCheckpoint(d)
+
+    caplog.set_level(logging.INFO)
+    r = checkpoint.PredictionCheckpoint(d)
+    assert "dropped 2 truncated score vector(s) of 3 pending" in caplog.text
+    assert r.completed("gcn", ["mf", "bp"]) == {"b", "c"}
+    assert r.completed("gcn", ["mf"]) == {"a", "b", "c"}
+    assert r.completed("cnn", ["mf", "bp"]) == {"e"}
+    dropped = {("gcn", "bp", "a"), ("cnn", "mf", "d")}
+    for net in ("gcn", "cnn"):
+        want = {(net, m, q) for m, rows in ref.scores(net).items()
+                for q in rows} - dropped
+        got = {(net, m, q) for m, rows in r.scores(net).items()
+               for q in rows}
+        assert got == want
+        for _, m, q in want:
+            assert np.array_equal(r.scores(net)[m][q], ref.scores(net)[m][q])
 
 
 # ---- GO propagation ---------------------------------------------------------

@@ -286,10 +286,11 @@ def test_fasta_db_pipeline_matches_jax(weights_dir, fasta_dir, tmp_path,
 
 def test_skip_matrix_topk_results_identical(tmp_path):
     """``test_skip_matrix_topk_results_identical`` on the port: a 600-term
-    head with uncalibrated random weights (about half of all terms ≥ 0.1),
-    so every protein overflows the top-256 fetch and is re-run densely;
-    ``results.tsv`` is byte-identical to the dense run's, whose rows match
-    the JAX dense run's."""
+    head with uncalibrated random weights (about half of all terms ≥ 0.1).
+    The port's ``skip_matrix`` run writes no matrix and the ``results.tsv``
+    of its matrix run, byte for byte; its rows match both the JAX matrix
+    run's and the JAX ``skip_matrix`` run's, where every protein overflows
+    the top-256 fetch and is re-run densely."""
     n_labels = 600
     weights = write_weights(
         tmp_path / "weights", n_labels,
@@ -302,32 +303,31 @@ def test_skip_matrix_topk_results_identical(tmp_path):
     run = tmp_path / "run"
     dense = run_pipeline("torch", fixture, run, weights,
                          deepfri_processing_modes=["mf"])
-    topk = run_pipeline("torch", fixture, tmp_path / "run_topk", weights,
+    skip = run_pipeline("torch", fixture, tmp_path / "run_skip", weights,
                         deepfri_processing_modes=["mf"], skip_matrix=True)
     ref = run_pipeline("jax", fixture, tmp_path / "run_ref", weights,
                        deepfri_processing_modes=["mf"])
-    assert not list(topk.glob("prediction_matrix_*"))
-    assert (topk / "results.tsv").read_bytes() == \
+    ref_topk = run_pipeline("jax", fixture, tmp_path / "run_ref_topk",
+                            weights, deepfri_processing_modes=["mf"],
+                            skip_matrix=True)
+    assert list(dense.glob("prediction_matrix_*"))
+    assert not list(skip.glob("prediction_matrix_*"))
+    assert (skip / "results.tsv").read_bytes() == \
         (dense / "results.tsv").read_bytes()
     assert assert_results_match(ref / "results.tsv",
                                 dense / "results.tsv") > 3 * 256
+    assert assert_results_match(ref_topk / "results.tsv",
+                                skip / "results.tsv") > 3 * 256
 
 
 # ---- the port's pipeline on its own -----------------------------------------
 
-def test_crash_resume_from_checkpoint(weights_dir, structure_dir, tmp_path,
-                                      monkeypatch, caplog):
-    """A run killed after inference resumes from the streaming checkpoint:
-    the rerun skips the completed queries and writes the results.tsv of an
-    uninterrupted run."""
-    import logging
-
+def _crashed_run(weights, structure_dir, run, monkeypatch):
+    """Search, then a predict run killed after inference (its streaming
+    checkpoint written, no ``results.tsv``); returns the resume call."""
     from metagenomic_deepfri_tpu_torch.batching.engine import \
         BatchedPredictor
 
-    clean = run_pipeline("torch", structure_dir, tmp_path / "clean",
-                         weights_dir, deepfri_processing_modes=["mf"])
-    run = tmp_path / "run"
     shutil.copytree(structure_dir, run)
     out = run / "results"
     qf = pipeline.load_query_file(run / "queries.faa")
@@ -346,7 +346,7 @@ def test_crash_resume_from_checkpoint(weights_dir, structure_dir, tmp_path,
     def predict():
         pipeline.predict_protein_function(
             query_file=pipeline.load_query_file(run / "queries.faa"),
-            databases=tuple(dbs), weights=weights_dir, output_path=out,
+            databases=tuple(dbs), weights=weights, output_path=out,
             deepfri_processing_modes=["mf"], threads=2, device="cpu")
 
     monkeypatch.setattr(BatchedPredictor, "predict_cnn", crashing_cnn)
@@ -354,11 +354,56 @@ def test_crash_resume_from_checkpoint(weights_dir, structure_dir, tmp_path,
         predict()
     assert list((out / "checkpoints").glob("part-*.npz"))
     assert not (out / "results.tsv").exists()
-
     monkeypatch.setattr(BatchedPredictor, "predict_cnn", real_cnn)
+    return predict
+
+
+def test_crash_resume_from_checkpoint(weights_dir, structure_dir, tmp_path,
+                                      monkeypatch, caplog):
+    """A run killed after inference resumes from the streaming checkpoint:
+    the rerun skips the completed queries and writes the results.tsv of an
+    uninterrupted run."""
+    import logging
+
+    clean = run_pipeline("torch", structure_dir, tmp_path / "clean",
+                         weights_dir, deepfri_processing_modes=["mf"])
+    out = tmp_path / "run" / "results"
+    resume = _crashed_run(weights_dir, structure_dir, tmp_path / "run",
+                          monkeypatch)
     caplog.set_level(logging.INFO)
-    predict()
+    resume()
     assert "Checkpoint resume: skipping 2 GCN and 1 CNN queries" \
+        in caplog.text
+    assert not (out / "checkpoints").exists()
+    assert (out / "results.tsv").read_bytes() == \
+        (clean / "results.tsv").read_bytes()
+
+
+def test_crash_resume_recomputes_overflow_marked_query(
+        weights_dir, structure_dir, tmp_path, monkeypatch, caplog):
+    """A checkpoint whose ``overflow.log`` (written by the JAX package's
+    checkpoint) still marks one GCN query ``OVER``, its newest part holding
+    a truncated row: the resumed run recomputes that query and writes the
+    results.tsv of an uninterrupted run, byte for byte."""
+    import logging
+
+    from metagenomic_deepfri_tpu.checkpoint import \
+        PredictionCheckpoint as JaxCheckpoint
+
+    clean = run_pipeline("torch", structure_dir, tmp_path / "clean",
+                         weights_dir, deepfri_processing_modes=["mf"])
+    assert "q_hit_a\t" in (clean / "results.tsv").read_text()
+    out = tmp_path / "run" / "results"
+    resume = _crashed_run(weights_dir, structure_dir, tmp_path / "run",
+                          monkeypatch)
+    jax_ckpt = JaxCheckpoint(out / "checkpoints")
+    row = jax_ckpt.scores("gcn")["mf"]["q_hit_a"]
+    jax_ckpt.add("gcn", {"mf": {"q_hit_a": np.zeros_like(row)}})
+    jax_ckpt.mark_overflow("gcn", "mf", ["q_hit_a"])
+    caplog.set_level(logging.INFO)
+    resume()
+    assert "dropped 1 truncated score vector(s)" in caplog.text
+    assert "Checkpoint resume: skipping 1 GCN and 1 CNN queries" \
         in caplog.text
     assert not (out / "checkpoints").exists()
     assert (out / "results.tsv").read_bytes() == \
@@ -397,9 +442,9 @@ def test_sharded_pipeline_merge_equals_unsharded(weights_dir, structure_dir,
 @pytest.mark.parametrize("skip_matrix", [False, True])
 def test_device_list_pipeline_equals_one_device(weights_dir, structure_dir,
                                                 tmp_path, skip_matrix):
-    """``device=["cpu", "cpu"]``: both engines (the streaming one and the
-    dense re-run) data-parallel over two replicas; ``results.tsv`` and the
-    matrices are the one-device run's, byte for byte."""
+    """``device=["cpu", "cpu"]``: the engine data-parallel over two
+    replicas; ``results.tsv`` and the matrices are the one-device run's,
+    byte for byte."""
     kw = dict(deepfri_processing_modes=["mf", "bp"], skip_matrix=skip_matrix)
     one = run_pipeline("torch", structure_dir, tmp_path / "one", weights_dir,
                        **kw)

@@ -111,9 +111,11 @@ def write_structures(root: Path, seqs: dict) -> Path:
     return structures
 
 
-def both_servers(root: Path, weights: Path, structures, **kwargs):
+def both_servers(root: Path, weights: Path, structures, jax_kwargs=None,
+                 **kwargs):
     """(JAX server, port server) on ``weights``, each with its own copy of
-    the ``structures`` folder (the database index is written beside it)."""
+    the ``structures`` folder (the database index is written beside it);
+    ``jax_kwargs`` go to the JAX server alone."""
     dbs = {}
     for side in ("jax", "torch"):
         dbs[side] = []
@@ -126,7 +128,8 @@ def both_servers(root: Path, weights: Path, structures, **kwargs):
         mp.setattr(jax_engine.BatchedPredictor, "warmup",
                    lambda self, *args, **kw: done)
         jax_srv = jax_serving.AnnotationServer(
-            weights, databases=dbs["jax"], keepalive_s=0, **kwargs)
+            weights, databases=dbs["jax"], keepalive_s=0, **kwargs,
+            **(jax_kwargs or {}))
     torch_srv = serving.AnnotationServer(weights, databases=dbs["torch"],
                                          device="cpu", **kwargs)
     return jax_srv, torch_srv
@@ -406,9 +409,11 @@ def test_socket_burst_of_clients(setup):
 
 
 def test_topk_server_response_identical(tmp_path):
-    """A score_topk=256 server returns the dense server's responses exactly,
-    through the dense re-run of overflows (about half of a 600-term head
-    clears the threshold), and both match the JAX dense server."""
+    """The port's server, which fetches every score row dense, gives the
+    responses of a JAX server with the top-256 fetch on a 600-term head
+    (about half of it clears the threshold, so the JAX server re-runs its
+    hits densely): more than 256 terms in a reply, each one at or above the
+    threshold."""
     n_labels = 600
     terms = [f"GO:{i:07d}" for i in range(n_labels)]
     weights = write_weights(
@@ -418,19 +423,18 @@ def test_topk_server_response_identical(tmp_path):
     base = _rand_seq(70)
     structures = write_structures(tmp_path / "source", {"af_x": base})
     queries = {"q_hit": _mutate(base, 2), "q_nohit": _rand_seq(45)}
-    jax_dense, dense = both_servers(tmp_path, weights, structures,
-                                    processing_modes=["mf"], threads=2)
-    topk = serving.AnnotationServer(
-        weights, databases=[tmp_path / "torch" / "structures"],
-        processing_modes=["mf"], threads=2, score_topk=256, device="cpu")
-    # A second float32 server in the process leaves TF32 off.
+    jax_topk, port = both_servers(tmp_path, weights, structures,
+                                  jax_kwargs=dict(score_topk=256),
+                                  processing_modes=["mf"], threads=2)
     assert highest_f32_precision_active()
-    ref = dense.annotate(dict(queries))
-    got = topk.annotate(dict(queries))
-    assert got == ref
-    assert topk._dense_engine is not None  # the overflow regime was hit
-    assert len(ref["results"]["q_hit"]["scores"]["mf"]) > 256
-    assert_responses_match(jax_dense.annotate(dict(queries)), got)
+    ref = jax_topk.annotate(dict(queries))
+    got = port.annotate(dict(queries))
+    assert jax_topk._dense_engine is not None  # the overflow regime was hit
+    assert len(got["results"]["q_hit"]["scores"]["mf"]) > 256
+    assert all(score >= serving.SCORE_THRESHOLD
+               for r in got["results"].values()
+               for rows in r["scores"].values() for _, score, _ in rows)
+    assert_responses_match(ref, got)
 
 
 def test_server_warms_request_shapes(setup, monkeypatch):

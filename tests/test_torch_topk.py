@@ -1,10 +1,12 @@
-"""Top-k score fetch of the port's engine against the JAX engine, and the
-float32 precision rule over both networks.
+"""The port's dense score rows against the JAX engine's top-k score fetch,
+and the float32 precision rule over both networks.
 
-Among equal scores ``lax.top_k`` and ``torch.topk`` may keep different
-indices, so the engines are compared tie-safely: the sets of overflowed ids
-must be equal, and for the other rows every position whose score is at or
-above the threshold must hold the same value (atol 1e-5).
+The port returns every row dense; the JAX engine with ``score_topk=K``
+returns each row's top K and flags the rows whose K-th score still clears
+the threshold. Among equal scores ``lax.top_k`` may keep any of the tied
+indices, so the rows are compared tie-safely: every term at or above the
+threshold that the JAX engine keeps holds the port's value (atol 1e-5), and
+the rows it flags are held to the JAX engine's dense fetch instead.
 """
 
 import dataclasses
@@ -76,36 +78,19 @@ def _collect(run):
     return out, {m: set(v) for m, v in flagged.items()}
 
 
-def _assert_tie_safe_equal(out, flagged, ref, ref_flagged, dense):
-    """Equal overflow sets; equal values at every above-threshold position
-    of the rows that did not overflow."""
-    assert flagged == ref_flagged
-    for mode, rows in dense.items():
+def _assert_keeps_every_term(out, ref, ref_flagged, ref_dense):
+    """The port's dense rows hold every term ≥ the threshold that the JAX
+    top-K rows keep (the JAX dense rows for the ids it flags), at the same
+    value, and no other term clears the threshold by more than the
+    tolerance."""
+    for mode, rows in out.items():
         over = ref_flagged.get(mode, set())
         for q, row in rows.items():
-            if q in over:
-                continue
-            keep = row >= THRESHOLD
-            np.testing.assert_allclose(out[mode][q][keep], ref[mode][q][keep],
-                                       rtol=0, atol=1e-5)
-            np.testing.assert_allclose(out[mode][q][keep], row[keep],
-                                       rtol=0, atol=1e-6)
-
-
-def test_expand_topk_host_matches_jax():
-    rng = np.random.default_rng(0)
-    vals = -np.sort(-rng.random((5, K)).astype(np.float32), axis=1)
-    vals[0] = 1.0  # ties at the top, as untrained heads give
-    idx = np.stack([rng.choice(N_LABELS, K, replace=False)
-                    for _ in range(5)]).astype(np.int32)
-    for threshold in (0.1, 0.5, 1.0):
-        got = engine._expand_topk_host((vals, idx), N_LABELS, threshold)
-        ref = jax_engine._expand_topk_host((vals, idx), N_LABELS, threshold)
-        np.testing.assert_array_equal(got[0], ref[0])
-        np.testing.assert_array_equal(got[1], ref[1])
-    dense = rng.random((3, 6)).astype(np.float32)
-    got, overflow = engine._expand_topk_host(dense, 6, 0.1)
-    assert got is dense and overflow is None
+            want = ref_dense[mode][q] if q in over else ref[mode][q]
+            keep = want >= THRESHOLD
+            np.testing.assert_allclose(row[keep], want[keep], rtol=0,
+                                       atol=1e-5)
+            assert not (row[~keep] >= THRESHOLD + 1e-5).any()
 
 
 @pytest.mark.parametrize("spmm", ["fused", "dense"])
@@ -117,25 +102,20 @@ def test_gcn_topk_matches_jax(spmm):
     ref, ref_flagged = _collect(lambda cb: jax_engine.BatchedPredictor(
         gcn_models=jax_h, score_topk=K, spmm="xla", **kw
     ).predict_gcn_from_coords(items, overflow_cb=cb))
-    dense = engine.BatchedPredictor(torch_h, device="cpu", spmm=spmm, **kw
-                                    ).predict_gcn_from_coords(items)
-    port = engine.BatchedPredictor(torch_h, device="cpu", spmm=spmm,
-                                   score_topk=K, **kw)
-    out, flagged = _collect(lambda cb: port.predict_gcn_from_coords(
-        items, overflow_cb=cb))
-    # both kinds of rows occur, and the flags are the dense rows' truth
-    assert 0 < len(flagged["bp"]) < len(items) and "cc" not in flagged
-    assert flagged["bp"] == {q for q, row in dense["bp"].items()
-                             if (row >= THRESHOLD).sum() >= K}
-    _assert_tie_safe_equal(out, flagged, ref, ref_flagged, dense)
-    assert all((row != 0).sum() == K for row in out["bp"].values())
-    for q, row in out["cc"].items():
-        np.testing.assert_array_equal(row, dense["cc"][q])
-    streamed, s_flagged = {"bp": {}, "cc": {}}, {}
+    ref_dense = jax_engine.BatchedPredictor(
+        gcn_models=jax_h, spmm="xla", **kw).predict_gcn_from_coords(items)
+    port = engine.BatchedPredictor(torch_h, device="cpu", spmm=spmm, **kw)
+    out = port.predict_gcn_from_coords(items)
+    # both kinds of rows occur, and the JAX flags are the port's dense truth
+    assert 0 < len(ref_flagged["bp"]) < len(items) and "cc" not in ref_flagged
+    assert ref_flagged["bp"] == {q for q, row in out["bp"].items()
+                                 if (row >= THRESHOLD).sum() >= K}
+    assert all(row.shape == (n,) and row.dtype == np.float32
+               for mode, n in labels.items() for row in out[mode].values())
+    _assert_keeps_every_term(out, ref, ref_flagged, ref_dense)
+    streamed = {"bp": {}, "cc": {}}
     port.predict_stream(
-        iter(items), result_cb=lambda p: [streamed[m].update(p[m]) for m in p],
-        overflow_cb=lambda m, q: s_flagged.setdefault(m, set()).update(q))
-    assert s_flagged == flagged
+        iter(items), result_cb=lambda p: [streamed[m].update(p[m]) for m in p])
     for q in items:
         np.testing.assert_array_equal(streamed["bp"][q[0]], out["bp"][q[0]])
 
@@ -151,54 +131,26 @@ def test_cnn_topk_matches_jax():
     _calibrate(engine.ModelHandle(
         "cnn", "bp", deepfri.CNNConfig(**dataclasses.asdict(cfg)), params),
         lambda p, c: deepfri.cnn_forward_logits(p, c, tokens, lengths))
+    jax_handles = {"bp": jax_engine.ModelHandle("cnn", "bp", cfg, params)}
     ref, ref_flagged = _collect(lambda cb: jax_engine.BatchedPredictor(
-        cnn_models={"bp": jax_engine.ModelHandle("cnn", "bp", cfg, params)},
-        batch_cap=4, score_topk=K).predict_cnn(items, overflow_cb=cb))
+        cnn_models=jax_handles, batch_cap=4, score_topk=K
+    ).predict_cnn(items, overflow_cb=cb))
+    ref_dense = jax_engine.BatchedPredictor(
+        cnn_models=jax_handles, batch_cap=4).predict_cnn(items)
     handle = engine.ModelHandle(
         "cnn", "bp", deepfri.CNNConfig(**dataclasses.asdict(cfg)), params)
-    dense = engine.BatchedPredictor(cnn_models={"bp": handle}, device="cpu",
-                                    batch_cap=4).predict_cnn(items)
     port = engine.BatchedPredictor(cnn_models={"bp": handle}, device="cpu",
-                                   batch_cap=4, score_topk=K)
-    out, flagged = _collect(lambda cb: port.predict_cnn(items,
-                                                        overflow_cb=cb))
-    assert 0 < len(flagged["bp"]) < len(items)
-    _assert_tie_safe_equal(out, flagged, ref, ref_flagged, dense)
-    s_flagged = {}
-    port.predict_stream(iter(items), net="cnn", overflow_cb=lambda m, q:
-                        s_flagged.setdefault(m, set()).update(q))
-    assert s_flagged == flagged
-
-
-def test_topk_is_a_noop_for_small_heads():
-    items = aligned_items(5, seed=3, min_len=12, max_len=60)
-    _, torch_h = _gcn_handles({"mf": 2 * K}, items)
-    ref = engine.BatchedPredictor(torch_h, device="cpu",
-                                  buckets=(64,)).predict_gcn_from_coords(items)
-    got = engine.BatchedPredictor(torch_h, device="cpu", buckets=(64,),
-                                  score_topk=K).predict_gcn_from_coords(items)
-    for q in ref["mf"]:
-        np.testing.assert_array_equal(got["mf"][q], ref["mf"][q])
-
-
-def test_compaction_keeps_sorted_top_values():
-    handle = engine.ModelHandle("gcn", "bp", deepfri.GCNConfig(
-        n_labels=N_LABELS, **GCN), {})
-    eng = engine.BatchedPredictor({"bp": handle}, device="cpu",
-                                  score_topk=K)
-    scores = torch.rand((3, N_LABELS), generator=torch.Generator()
-                        .manual_seed(1))
-    vals, idx = eng._compact_scores(scores, N_LABELS)
-    assert idx.dtype == torch.int32 and vals.shape == (3, K)
-    assert torch.equal(vals, scores.sort(dim=-1, descending=True).values[:, :K])
-    assert eng._compact_scores(scores, 2 * K) is scores
-
-
-@pytest.mark.parametrize("bad", [0, -3])
-def test_invalid_topk_rejected(bad):
-    with pytest.raises(ValueError, match="score_topk"):
-        engine.BatchedPredictor(device="cpu", score_topk=bad)
-    assert engine.BatchedPredictor(device="cpu").score_topk is None
+                                   batch_cap=4)
+    out = port.predict_cnn(items)
+    assert 0 < len(ref_flagged["bp"]) < len(items)
+    assert ref_flagged["bp"] == {q for q, row in out["bp"].items()
+                                 if (row >= THRESHOLD).sum() >= K}
+    _assert_keeps_every_term(out, ref, ref_flagged, ref_dense)
+    streamed = {}
+    port.predict_stream(iter(items), net="cnn",
+                        result_cb=lambda p: streamed.update(p["bp"]))
+    for q, row in out["bp"].items():
+        np.testing.assert_array_equal(streamed[q], row)
 
 
 @pytest.mark.parametrize("gcn_dtype, cnn_dtype, turned_off", [
