@@ -8,9 +8,10 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
 1. Device: a CUDA device is required (no CPU fallback); prints its name,
    the device count and ``nvidia-smi``'s name and power limit.
 2. Build: compiles ``metagenomic_deepfri_tpu_torch/csrc/*.cu`` with nvcc
-   (``graphconv.cu``: B1, B2; ``contact.cu``: B3), prints ptxas's
-   register and spill counts, and fails unless every instance of B1 issues
-   ``HGMMA`` (wgmma) in the SASS that ``cuobjdump`` shows.
+   (``graphconv.cu``: B1, B2; ``contact.cu``: B3; ``esm_gemm.cu``: E1),
+   prints ptxas's register and spill counts, and fails unless every
+   instance of B1 and of E1 issues ``HGMMA`` (wgmma) in the SASS that
+   ``cuobjdump`` shows.
 3. Kernels against their plain PyTorch twins on the card, at B=4,
    L ∈ {130, 512} (sentinels and insertions) plus a near-threshold batch
    (pairs at 6 Å ± 1 ulp): degrees and contact maps exact, aggregation
@@ -136,8 +137,22 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
     ms a forward and peak memory a rank; (d) ``bench_utils.
     run_mesh_benchmark``'s rows (engine and ring at fixed work over 1, 2,
     4, … cards).
+11. ESM-2's projections, E1 (``ops/esm_gemm.py``): ``esm_gemm`` on
+    ``qkv``, ``out``, ``fc1`` and ``fc2`` of ESM-2 650M (d 1280, FFN 5120)
+    at M 33,280 (a batch's token slots) and 33,243 (a ragged edge), each
+    with its bias and epilogue (GELU; the residual add), against
+    ``esm_gemm_ref`` (relative to |x|·|W| + |b| (+ |residual|), within
+    2⁻²¹: a dropped plane reads ~2⁻¹⁹) and float64 (at most twice the
+    error of cuBLAS's ``torch.addmm`` in float32 with TF32 off on the same
+    inputs); x and W from 2⁻¹⁰³ to float32's largest against the identity,
+    bit for bit. Times each shape at M 33,280 (TFLOP/s beside cuBLAS's).
+    Then the mf GCN on the published ESM-2 trunk through
+    ``BatchedPredictor.predict_stream`` on 64 proteins of bucket 512, the
+    launch count zeroed just before: 4 E1 launches a layer and a batch,
+    ``split`` 1 on every ``model/esm/gemm`` span, scores finite and in
+    [0, 1].
 
-Last, the kernel summary (launches on the main path, phases 4–10, every
+Last, the kernel summary (launches on the main path, phases 4–11, every
 rank's included; max |Δ|, ms, plain, device, bound and library ms), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
@@ -167,15 +182,15 @@ import numpy as np
 import torch
 
 try:
-    from metagenomic_deepfri_tpu_torch import (bench_utils, parity, synthetic,
-                                               training)
+    from metagenomic_deepfri_tpu_torch import (bench_utils, parity,
+                                               profiling, synthetic, training)
     from metagenomic_deepfri_tpu_torch.batching.buckets import (
-        assign_bucket, bucket_plan, gcn_batch_size)
+        assign_bucket, bucket_plan, esm_batch_size, gcn_batch_size)
     from metagenomic_deepfri_tpu_torch.batching.engine import (
         BatchedPredictor, ModelHandle, _pad_batch, _pad_batch_coords)
     from metagenomic_deepfri_tpu_torch.batching.spmm_table import \
         resolve_spmm
-    from metagenomic_deepfri_tpu_torch.models import deepfri
+    from metagenomic_deepfri_tpu_torch.models import deepfri, esm2
     from metagenomic_deepfri_tpu_torch.models.convert import (
         gcn_params_from_numpy, gcn_params_to_numpy)
     from metagenomic_deepfri_tpu_torch.models.lstm import lstm_stack_forward
@@ -184,6 +199,7 @@ try:
         load_model_handle
     from metagenomic_deepfri_tpu_torch.ops import _build
     from metagenomic_deepfri_tpu_torch.ops import contact
+    from metagenomic_deepfri_tpu_torch.ops import esm_gemm as eg
     from metagenomic_deepfri_tpu_torch.ops import graphconv as gc
     from metagenomic_deepfri_tpu_torch.ops.cmap_align import \
         aligned_contacts_from_coords
@@ -265,6 +281,18 @@ P10_ROUNDS = 3
 P10_L = 4096
 P10_LENGTHS = (P10_L, P10_L - 301)
 P10_REPS = 3
+# Phase 11: ESM-2 650M's projections, (K, N, epilogue) of qkv, out, fc1, fc2.
+ESM_PROJECTIONS = {"qkv": (1280, 3840, "bias"),
+                   "out": (1280, 1280, "residual"),
+                   "fc1": (1280, 5120, "gelu"),
+                   "fc2": (5120, 1280, "residual")}
+# A batch's token slots (256 rows of 130 at bucket 128), and a ragged edge.
+ESM_ROWS = (33280, 33280 - 37)
+# E1 against its twin, relative to |x|·|W| + |b| (+ |residual|): both round
+# in float32 (~2e-7); a dropped lo plane reads 1.6e-6 to 3.5e-6.
+ESM_TWIN_RTOL = 2.0 ** -21
+ESM_PROTEINS = 64      # one batch at bucket 512 (esm_batch_size(512) rows)
+ESM_LENGTHS = (257, 512)
 # Config overrides (empty: the published width) of phase 5's and phase 10's
 # GCNs, for rehearsals on the CPU.
 FT_GCN = {}
@@ -273,17 +301,20 @@ SOURCES = {
     "graphconv_aggregate": "metagenomic_deepfri_tpu_torch/csrc/graphconv.cu",
     "contact_degrees": "metagenomic_deepfri_tpu_torch/csrc/graphconv.cu",
     "contact_map": "metagenomic_deepfri_tpu_torch/csrc/contact.cu",
+    "esm_gemm": "metagenomic_deepfri_tpu_torch/csrc/esm_gemm.cu",
 }
 REPLACES = {
     "contact_degrees": "metagenomic_deepfri_tpu/ops/graphconv_pallas.py:190",
     "graphconv_aggregate":
         "metagenomic_deepfri_tpu/ops/graphconv_pallas.py:275",
     "contact_map": "metagenomic_deepfri_tpu/ops/contact.py:193",
+    "esm_gemm": None,  # the port's own: the JAX package has no ESM-2
 }
 SYMBOLS = {
     "contact_degrees": "contact_degrees_kernel",
     "graphconv_aggregate": "graphconv_aggregate_kernel",
     "contact_map": "contact_map_kernel",
+    "esm_gemm": "esm_gemm_kernel",
 }
 # A kernel's bound is the larger of its bytes (each input read once, each
 # output written once) over HBM3's rate and its operations over the peak of
@@ -401,16 +432,18 @@ def mixed_magnitudes(xs: torch.Tensor) -> torch.Tensor:
 
 
 def check_hgmma(lib_path: Path) -> None:
-    """Phase 2: every instance of B1 must issue HGMMA (wgmma) in SASS."""
+    """Phase 2: every instance of B1 and of E1 must issue HGMMA (wgmma) in
+    SASS."""
     sass = _build.kernel_sass(lib_path)
-    b1 = [code for name, code in sass.items()
-          if SYMBOLS["graphconv_aggregate"] in name]
-    with_hgmma = sum("HGMMA" in code for code in b1)
-    log(f"  SASS: {with_hgmma} of {len(b1)} graphconv_aggregate_kernel "
-        "instances issue HGMMA")
-    if not b1 or with_hgmma != len(b1):
-        raise AssertionError("graphconv_aggregate_kernel does not use the "
-                             "tensor cores (no HGMMA in its SASS)")
+    for kernel in ("graphconv_aggregate", "esm_gemm"):
+        symbol = SYMBOLS[kernel]
+        found = [code for name, code in sass.items() if symbol in name]
+        with_hgmma = sum("HGMMA" in code for code in found)
+        log(f"  SASS: {with_hgmma} of {len(found)} {symbol} instances issue "
+            "HGMMA")
+        if not found or with_hgmma != len(found):
+            raise AssertionError(f"{symbol} does not use the tensor cores "
+                                 "(no HGMMA in its SASS)")
 
 
 def phase_kernels(dev):
@@ -488,6 +521,170 @@ def phase_kernels(dev):
                 f"{ref.abs().max().item():.5g}): tolerance used {used:.3g}")
             torch.testing.assert_close(out, ref, **AGG_TOL)
     return err
+
+
+def esm_operands(proj: str, M: int, dev):
+    """x, W, b, the epilogue and its residual (or None) of one projection
+    at M rows: x normal, W Glorot-uniform, b uniform in (-0.1, 0.1)."""
+    K, N, epilogue = ESM_PROJECTIONS[proj]
+    gen = torch.Generator(device=dev).manual_seed(SEED + K + N + M)
+
+    def uniform(*shape, scale):
+        return (torch.rand(*shape, generator=gen, device=dev) * 2 - 1) * scale
+
+    x = torch.randn(M, K, generator=gen, device=dev)
+    w = uniform(K, N, scale=(6.0 / (K + N)) ** 0.5)
+    b = uniform(N, scale=0.1)
+    res = (torch.randn(M, N, generator=gen, device=dev)
+           if epilogue == "residual" else None)
+    return x, w, b, epilogue, res
+
+
+def esm_epilogue(y, epilogue: str, residual):
+    """The trunk's epilogue after ``torch.addmm``, as it ran before E1."""
+    if epilogue == "gelu":
+        return torch.nn.functional.gelu(y)
+    return y if residual is None else residual + y
+
+
+def esm_gemm_checks(dev) -> float:
+    """Phase 11's accuracy checks (see the module's docstring); returns E1's
+    max |Δ| to its twin."""
+    worst = 0.0
+    with highest_f32_precision():
+        for proj in ESM_PROJECTIONS:
+            for M in ESM_ROWS:
+                x, w, b, epi, res = esm_operands(proj, M, dev)
+                got = eg.esm_gemm(x, w, b, epi, res)
+                twin = eg.esm_gemm_ref(x, eg.weight_planes(w), b, epi, res)
+                plain = esm_epilogue(torch.addmm(b, x, w), epi, res)
+                x64, w64 = x.double(), w.double()
+                want = esm_epilogue(x64 @ w64 + b.double(), epi,
+                                    None if res is None else res.double())
+                scale = x64.abs() @ w64.abs() + b.double().abs()
+                if res is not None:
+                    scale += res.double().abs()
+                err = {k: float(((v.double() - r).abs() / scale).max())
+                       for k, v, r in (("split", got, want),
+                                       ("twin", twin, want),
+                                       ("cublas", plain, want),
+                                       ("to_twin", got, twin.double()))}
+                worst = max(worst, float((got - twin).abs().max()))
+                log(f"  esm_gemm {proj} M={M} ({epi}): relative error "
+                    f"{json.dumps(err)}")
+                if not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"esm_gemm {proj} M={M}: not finite")
+                if not err["split"] <= 2 * err["cublas"]:
+                    raise AssertionError(f"esm_gemm {proj} M={M}: over twice "
+                                         "cuBLAS float32's error")
+                if not err["to_twin"] <= ESM_TWIN_RTOL:
+                    raise AssertionError(f"esm_gemm {proj} M={M}: differs "
+                                         "from its twin")
+                del x64, w64, want, scale
+        rng = np.random.default_rng(SEED)
+        K, other = 256, 300
+        v = (rng.choice([-1.0, 1.0], (other, K))
+             * 10.0 ** rng.uniform(-30, 30, (other, K))).astype(np.float32)
+        f32_max = float(np.finfo(np.float32).max)
+        v[0, :8] = (f32_max, -f32_max, 3.3962e38, -3.4e38, 2.0 ** -103,
+                    -(2.0 ** -103), 0.0, -0.0)
+        v = torch.from_numpy(v).to(dev)
+        eye = torch.eye(K, device=dev)
+        as_x = eg.esm_gemm(v, eye, torch.zeros(K, device=dev))
+        as_w = eg.esm_gemm(eye, v.t().contiguous(),
+                           torch.zeros(other, device=dev))
+        if not (torch.equal(as_x, v) and torch.equal(as_w, v.t())):
+            raise AssertionError("esm_gemm: the planes lose bits between "
+                                 "2**-103 and float32's largest value")
+        log("  esm_gemm x and W at float32's extremes against the identity: "
+            "bit for bit")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def esm_gemm_times(dev) -> list:
+    """E1 and its twin on each projection at M = ESM_ROWS[0], with the
+    launch's bound (the float32 work, 2·M·K·N, at the tensor cores' bf16
+    rate, or its bytes at HBM3's, the larger) and the trunk's former
+    yardstick: ``torch.addmm`` in float32 with TF32 off (cuBLAS), then the
+    epilogue."""
+    rows = []
+    M = ESM_ROWS[0]
+    with highest_f32_precision():
+        for proj, (K, N, _) in ESM_PROJECTIONS.items():
+            x, w, b, epi, res = esm_operands(proj, M, dev)
+            planes = eg.weight_planes(w)
+            flops = 2 * M * K * N
+            nbytes = 4 * M * K + 6 * K * N + 4 * N + 4 * M * N * (
+                1 if res is None else 2)
+            t_ops = flops / BF16_TENSOR_FLOP_PER_S
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            row = timed_row(
+                "esm_gemm", lambda: eg.esm_gemm(x, w, b, epi, res),
+                lambda: eg.esm_gemm_ref(x, planes, b, epi, res),
+                (max(t_ops, t_bytes) * 1e3,
+                 "bytes" if t_bytes >= t_ops else "operations"),
+                proj=proj, M=M, K=K, N=N, library_ms=cuda_ms(
+                    lambda: esm_epilogue(torch.addmm(b, x, w), epi, res)))
+            row["tflop_s"] = flops / row["ms"] / 1e9
+            row["library_tflop_s"] = flops / row["library_ms"] / 1e9
+            rows.append(row)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def esm_main_path(dev, smi) -> int:
+    """Phase 11's main-path run (see the module's docstring); returns E1's
+    launches."""
+    cfg = deepfri.ESMGCNConfig(n_labels=MODES["mf"], esm=esm2.ESM2Config())
+    params = deepfri.init_gcn(cfg, torch.Generator(device=dev).manual_seed(
+        SEED), dev)
+    engine = BatchedPredictor({"mf": ModelHandle("gcn", "mf", cfg, params)},
+                              device=dev)
+    items = synthetic.aligned_items(ESM_PROTEINS, seed=SEED + 11,
+                                    min_len=ESM_LENGTHS[0],
+                                    max_len=ESM_LENGTHS[1])
+    per_bucket = {}
+    for _, seq, _, _ in items:
+        b = assign_bucket(len(seq))
+        per_bucket[b] = per_bucket.get(b, 0) + 1
+    n_batches = sum(-(-n // esm_batch_size(b)) for b, n in per_bucket.items())
+    eg.esm_gemm.launches = 0
+    profiling.reset()
+    profiling.set_recording(True)
+    try:
+        out, n, secs = run_stream(engine, items, modes=["mf"])
+        gemm = [s for s in profiling.spans() if s.name == "model/esm/gemm"]
+    finally:
+        profiling.set_recording(None)
+        profiling.reset()
+    launches = eg.esm_gemm.launches
+    want = 4 * cfg.esm.layers * n_batches
+    split = sum(s.counts["split"] for s in gemm)
+    log(f"  esm2 mf GCN: {n} proteins in {n_batches} batch(es) of "
+        f"{sorted(per_bucket)} in {secs:.2f} s (first pass) on {smi}; "
+        f"esm_gemm launches {launches}, model/esm/gemm spans {len(gemm)} "
+        f"with split 1 on {split}; expected {want} of each")
+    if n != ESM_PROTEINS:
+        raise AssertionError(f"esm2: processed {n} of {ESM_PROTEINS}")
+    check_scores(out, items, modes=["mf"])
+    if not launches == len(gemm) == split == want:
+        raise AssertionError("esm2: the projections did not all take E1")
+    del engine, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_esm(dev, smi):
+    """Phase 11: returns E1's max |Δ| to its twin, its timed rows and its
+    launches on the main path."""
+    log("phase 11: ESM-2's projections (esm_gemm) at the published widths")
+    worst = esm_gemm_checks(dev)
+    rows = esm_gemm_times(dev)
+    log(f"esm_gemm times (CUDA events, mean of 10) on {smi}:")
+    for r in rows:
+        log(f"  {json.dumps(r)}")
+    return worst, rows, esm_main_path(dev, smi)
 
 
 def make_handles(dtype: str, dev):
@@ -2313,10 +2510,15 @@ def main(argv=None) -> int:
             for name, n in counts.items():
                 launches[name] += n
 
+    # Phase 11: ESM-2's projections on E1, alone and on the main path.
+    errors["esm_gemm"], esm_times, launches["esm_gemm"] = phase_esm(dev, smi)
+
     def headline(name):
         if name == "contact_map":  # the fine-tuning batch: B=8, bucket 512
             return next(r for r in cmap_times if r["B"] == FT_BATCH
                         and r["bucket"] == 512)
+        if name == "esm_gemm":  # fc1, the widest of the four
+            return next(r for r in esm_times if r["proj"] == "fc1")
         return next(r for r in times if r["kernel"] == name
                     and r["bucket"] == 512 and r["dtype"] == "float32"
                     and r["D"] in (None, 1024))
@@ -2329,7 +2531,7 @@ def main(argv=None) -> int:
              "ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
              "library_ms")}}
         for name in ("graphconv_aggregate", "contact_degrees",
-                     "contact_map")]}
+                     "contact_map", "esm_gemm")]}
     log(json.dumps(summary))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {

@@ -31,6 +31,8 @@
 #include <atomic>
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr float kRealLimit = 0.5f * 1.0e6f;
@@ -224,11 +226,10 @@ constexpr int kAcc = kFeat / 2;       // accumulator floats a thread
 // B-operand layout: K-major with the 64-byte swizzle. Each feature f is a
 // 64-byte row holding the stage's 32 columns as four 16-byte chunks; chunk c
 // sits at position c ^ ((f >> 1) & 3), so the 8 rows of a core-matrix group
-// (512 bytes, kSbo apart) spread over all 32 banks when the tensor cores
-// read them. The planes are aligned to the swizzle's 512-byte period, so
-// that the swizzle the hardware computes from address bits matches the
-// offsets written here.
-constexpr uint32_t kSbo = 8 * kCols * 2;
+// (512 bytes apart) spread over all 32 banks when the tensor cores read
+// them (hopper::desc_k32_sw64). The planes are aligned to the swizzle's
+// 512-byte period, so that the swizzle the hardware computes from address
+// bits matches the offsets written here.
 constexpr int kSmemAlign = 512;
 static_assert(kCols == 32, "one 64-byte swizzle row per feature a stage");
 static_assert(kCols / 8 * kFeat % kThreads == 0, "whole items a thread");
@@ -252,130 +253,22 @@ __device__ __forceinline__ int plane_offset(int k, int f) {
   return f * kCols + ((k / 8) ^ ((f >> 1) & 3)) * 8;
 }
 
-// Descriptor of k16 slice s of a plane: the start address moves 32 bytes a
-// slice inside the swizzled rows; LBO is unused for a swizzled K-major
-// operand (1 by convention), layout type 2 is the 64-byte swizzle.
-__device__ __forceinline__ uint64_t descriptor(const void* plane, int s) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(plane)) + 32 * s;
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(1) << 16 |
-         static_cast<uint64_t>(kSbo >> 4) << 32 |
-         static_cast<uint64_t>(2) << 62;
-}
-
-// d += A (registers, m64 x k16) * B (descriptor, k16 x n128), bf16 -> f32.
-__device__ __forceinline__ void wgmma_rs(float (&d)[kAcc],
-                                         const uint32_t (&a)[4],
-                                         uint64_t desc) {
-  static_assert(kFeat == 128, "the asm below is m64n128k16");
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-// Keep registers that an asynchronous wgmma reads or writes where they are
-// until it has completed (the compiler does not know the asm is async).
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
                                           bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(smem))),
+                   hopper::smem_addr(smem)),
                "l"(gmem), "r"(valid ? 4 : 0));
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Wait until the mbarrier has completed the phase of the given parity.
-__device__ __forceinline__ void wait_parity(const uint64_t* bar,
-                                            uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT_%=;\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// bf16_rz of two floats, packed (x0 in the low half): the top 16 bits of
-// each; infinities stay infinite and NaN stays NaN.
-__device__ __forceinline__ uint32_t bf16x2_rz(float x0, float x1) {
-  uint32_t d;
-  asm("cvt.rz.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(x1), "f"(x0));
-  return d;
-}
-
-__device__ __forceinline__ float low_float(uint32_t v) {
-  return __uint_as_float(v << 16);
-}
-
-__device__ __forceinline__ float high_float(uint32_t v) {
-  return __uint_as_float(v & 0xFFFF0000u);
-}
-
-// Two elements' planes, each as a packed bf16 pair (x0 in the low half).
-// float32 compute truncates hi and mid, so that |hi| <= |x| and
-// |hi + mid| <= |x|: a finite x never gives an infinite plane or partial
-// sum (round to nearest would give hi = inf past 3.3895e38, and at
-// float32's largest value hi + mid = 2^128).
+// Two elements' planes, each as a packed bf16 pair (x0 in the low half):
+// for float32 compute hopper::split_bf16x3 (hi and mid truncated, so no
+// plane or partial sum of a finite x is infinite).
 template <int kPlanes>
 __device__ __forceinline__ void split(float x0, float x1, uint32_t* out) {
   if constexpr (kPlanes == 1) {
-    out[0] = bits(__floats2bfloat162_rn(x0, x1));
+    out[0] = hopper::bits(__floats2bfloat162_rn(x0, x1));
   } else {
-    const uint32_t hi = bf16x2_rz(x0, x1);
-    out[0] = hi;
-    float r0 = isfinite(x0) ? __fsub_rn(x0, low_float(hi)) : 0.f;
-    float r1 = isfinite(x1) ? __fsub_rn(x1, high_float(hi)) : 0.f;
-    const uint32_t mid = bf16x2_rz(r0, r1);
-    r0 = __fsub_rn(r0, low_float(mid));
-    r1 = __fsub_rn(r1, high_float(mid));
-    out[1] = mid;
-    out[2] = bits(__floats2bfloat162_rn(r0, r1));
+    hopper::split_bf16x3(x0, x1, out[0], out[1], out[2]);
   }
 }
 
@@ -390,6 +283,7 @@ graphconv_aggregate_kernel(const float* __restrict__ coords,
                            float* __restrict__ out, int L, int D, float thr2,
                            int gen, const __grid_constant__ CUtensorMap map) {
   using namespace agg;
+  using hopper::smem_addr;
   constexpr int kRing = kStages<kPlanes>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t skew =
@@ -483,7 +377,8 @@ graphconv_aggregate_kernel(const float* __restrict__ coords,
     // Stage k's float32 tile -> bf16 planes of buffer k & 1: each item is 8
     // columns of one feature, one 16-byte row of a core matrix a plane.
     auto convert = [&](int k) {
-      if constexpr (kVec4) wait_parity(&sm.full[k % kRing], k / kRing & 1);
+      if constexpr (kVec4)
+        hopper::wait_parity(&sm.full[k % kRing], k / kRing & 1);
       const float (*x)[kFeat] = sm.xs[k % kRing];
       const int live = n - k * kCols;  // rows of the tile below n
 #pragma unroll
@@ -577,13 +472,14 @@ graphconv_aggregate_kernel(const float* __restrict__ coords,
 
     for (int kb = 0; kb < nk; ++kb) {
       // Stage kb's products, asynchronously on the tensor cores.
-      pin(acc);
+      hopper::pin(acc);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int s = 0; s < kSlices; ++s) {
 #pragma unroll
         for (int pl = 0; pl < kPlanes; ++pl)
-          wgmma_rs(acc, a_cur[s], descriptor(sm.plane[kb & 1][pl], s));
+          hopper::wgmma_m64n128k16(
+              acc, a_cur[s], hopper::desc_k32_sw64(sm.plane[kb & 1][pl], s), 1);
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 
@@ -600,10 +496,10 @@ graphconv_aggregate_kernel(const float* __restrict__ coords,
       }
 
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-      pin(acc);
+      hopper::pin(acc);
 #pragma unroll
       for (int s = 0; s < kSlices; ++s) {
-        pin(a_cur[s]);
+        hopper::pin(a_cur[s]);
 #pragma unroll
         for (int r = 0; r < 4; ++r) a_cur[s][r] = a_next[s][r];
       }
@@ -642,22 +538,9 @@ graphconv_aggregate_kernel(const float* __restrict__ coords,
 // comes from the driver at run time, so the library needs no -lcuda.
 cudaError_t xs_tensor_map(CUtensorMap* map, const float* xs, int B, int L,
                           int D) {
-  using Encode = CUresult (*)(
-      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-      const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-      CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-      CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return cudaErrorSymbolNotFound;
-    encode = reinterpret_cast<Encode>(fn);
-  }
+  hopper::TensorMapEncoder encode;
+  const cudaError_t err = hopper::tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return err;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(L),
                               static_cast<cuuint64_t>(B)};

@@ -43,7 +43,13 @@ The tree (dense kernels stored (in, out), as everywhere in the port)::
 :func:`..convert.esm2_from_hf_state_dict` builds it from the published
 checkpoint's Hugging Face key layout. Each layer runs under the device
 spans ``model/esm/attn`` (LN₁ through the residual add), ``model/esm/sdpa``
-inside it (softmax(qkᵀ)v alone) and ``model/esm/ffn``.
+inside it (softmax(qkᵀ)v alone) and ``model/esm/ffn``; each of its four
+projections under ``model/esm/gemm`` inside those (:func:`_linear`).
+
+On a CUDA device in float32 with TF32 off, the projections run on the
+tensor cores from three bf16 planes a float32 operand
+(:mod:`..ops.esm_gemm`), with the bias, GELU and residual add in the
+kernel's epilogue; elsewhere ``torch.addmm`` and PyTorch's GELU and add.
 """
 
 from __future__ import annotations
@@ -55,8 +61,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from metagenomic_deepfri_tpu_torch.ops.esm_gemm import (esm_gemm,
+                                                        split_gemm_active)
 from metagenomic_deepfri_tpu_torch.ops.one_hot import ALPHABET
-from metagenomic_deepfri_tpu_torch.profiling import device_span
+from metagenomic_deepfri_tpu_torch.profiling import (count, device_span,
+                                                     recording)
 
 # The ESM-1b alphabet of ESM-2, ids 0-32.
 ESM_ALPHABET = ("<cls>", "<pad>", "<eos>", "<unk>", "L", "A", "G", "V",
@@ -120,9 +129,30 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor,
     return x * cos + torch.cat([-x2, x1], dim=-1) * sin
 
 
-def _linear(p: dict, x: torch.Tensor, dtype) -> torch.Tensor:
-    return torch.addmm(p["bias"].to(dtype), x.reshape(-1, x.shape[-1]),
-                       p["kernel"].to(dtype)).view(*x.shape[:-1], -1)
+def _linear(p: dict, x: torch.Tensor, dtype, epilogue: str = "bias",
+            residual: torch.Tensor | None = None) -> torch.Tensor:
+    """``x·W + b``, then GELU (``epilogue="gelu"``) or ``residual +``
+    (``"residual"``), under the device span ``model/esm/gemm`` with the
+    counters ``rows``, ``k``, ``n`` and ``split``: 1 where the split kernel
+    ran (:func:`..ops.esm_gemm.split_gemm_active`), 0 where
+    ``torch.addmm`` did."""
+    w = p["kernel"]
+    x2 = x.reshape(-1, x.shape[-1])
+    split = split_gemm_active(x2, w)
+    with device_span("model/esm/gemm", x.device):
+        if recording():
+            count(rows=x2.shape[0], k=x2.shape[1], n=w.shape[1],
+                  split=int(split))
+        res = None if residual is None else residual.reshape(-1, w.shape[1])
+        if split:
+            y = esm_gemm(x2, w, p["bias"], epilogue, res)
+        else:
+            y = torch.addmm(p["bias"].to(dtype), x2, w.to(dtype))
+            if epilogue == "gelu":
+                y = F.gelu(y)
+            elif epilogue == "residual":
+                y = res + y
+    return y.view(*x.shape[:-1], -1)
 
 
 def _norm(p: dict, x: torch.Tensor, eps: float, dtype) -> torch.Tensor:
@@ -153,11 +183,12 @@ def _layer(p: dict, x: torch.Tensor, config: ESM2Config, mask, cos, sin,
         with device_span("model/esm/sdpa", x.device):
             a = F.scaled_dot_product_attention(q, k, v.contiguous(),
                                                attn_mask=mask, scale=1.0)
-        x = x + _linear(p["out"], a.transpose(1, 2).reshape(B, T, d), dtype)
+        x = _linear(p["out"], a.transpose(1, 2).reshape(B, T, d), dtype,
+                    "residual", x)
     with device_span("model/esm/ffn", x.device):
         h = _norm(p["ln2"], x, config.ln_eps, dtype)
-        h = F.gelu(_linear(p["fc1"], h, dtype))
-        x = x + _linear(p["fc2"], h, dtype)
+        h = _linear(p["fc1"], h, dtype, "gelu")
+        x = _linear(p["fc2"], h, dtype, "residual", x)
     return x
 
 

@@ -126,6 +126,8 @@ def _load_library() -> ctypes.CDLL:
     lib.mdf_graphconv_aggregate.restype = i
     lib.mdf_contact_map.argtypes = [p, p, p, i, i, f, p]
     lib.mdf_contact_map.restype = i
+    lib.mdf_esm_gemm.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.mdf_esm_gemm.restype = i
     lib.mdf_error_string.argtypes = [i]
     lib.mdf_error_string.restype = ctypes.c_char_p
     return lib

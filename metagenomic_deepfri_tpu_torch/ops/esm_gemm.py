@@ -1,0 +1,166 @@
+"""Float32-exact GEMM on the tensor cores for ESM-2's projections.
+
+``y = epilogue(x·W + b)`` for the trunk's ``qkv``, ``out``, ``fc1`` and
+``fc2`` projections (:mod:`..models.esm2`). The CUDA kernel
+(``csrc/esm_gemm.cu``) replaces no TPU kernel: it exists because PyTorch
+runs a float32 matmul with TF32 off on the CUDA cores, where the trunk's
+GEMMs take ~80 % of an ESM-2 cell's device time.
+
+Every float32 operand is split exactly into three bfloat16 planes, hi + mid
++ lo (:func:`.graphconv._split_bf16x3`, B1's split), and six of the nine
+plane products are summed in float32: hi·hi, hi·mid, mid·hi, hi·lo,
+mid·mid, lo·hi. Each dropped product is at most 2⁻²⁴·|x|·|w| a term,
+float32's unit roundoff. W's planes are made once per kernel tensor and
+kept while it lives (:func:`weight_planes`); x is split inside the kernel.
+
+:func:`esm_gemm` launches the kernel on CUDA tensors or raises; its plain
+twin is :func:`esm_gemm_ref` (the same planes, the same six products,
+float32 sums). Whether a projection takes the kernel at all is
+:func:`split_gemm_active`'s call, made on what the call can observe. It
+counts its launches in ``esm_gemm.launches``.
+"""
+
+from __future__ import annotations
+
+import threading
+import weakref
+
+import torch
+import torch.nn.functional as F
+
+from metagenomic_deepfri_tpu_torch.ops import _build
+from metagenomic_deepfri_tpu_torch.ops.contact import _launch, count_launch
+from metagenomic_deepfri_tpu_torch.ops.graphconv import _split_bf16x3
+from metagenomic_deepfri_tpu_torch.precision import \
+    highest_f32_precision_active
+
+# The kernel's epilogues, as its C entry point numbers them.
+EPILOGUES = {"bias": 0, "gelu": 1, "residual": 2}
+_PLANE_ALIGN = 8  # the planes' row length, in bf16 elements (16 bytes)
+
+
+def split_gemm_active(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether ``x·w`` takes the split kernel: x on a CUDA device, both
+    float32, float32 matmuls in full precision (TF32 off, precision
+    "highest", :func:`..precision.highest_f32_precision_active`), and no
+    gradient to track (the kernel has no backward)."""
+    return (x.device.type == "cuda" and x.dtype == torch.float32
+            and w.dtype == torch.float32
+            and highest_f32_precision_active()
+            and not (torch.is_grad_enabled()
+                     and (x.requires_grad or w.requires_grad)))
+
+
+def split_planes(w: torch.Tensor) -> torch.Tensor:
+    """(K, N) float32 kernel → its (3, N, Kp) bfloat16 planes hi, mid, lo,
+    K-major, each row zero-padded to Kp, K rounded up to a multiple of 8
+    (a tensor map's rows are whole 16-byte units)."""
+    K, N = w.shape
+    Kp = -(-K // _PLANE_ALIGN) * _PLANE_ALIGN
+    planes = torch.zeros((3, N, Kp), dtype=torch.bfloat16, device=w.device)
+    for p, plane in zip(planes, _split_bf16x3(w.detach().t())):
+        p[:, :K] = plane
+    return planes
+
+
+_planes: dict = {}
+_planes_lock = threading.Lock()
+
+
+def weight_planes(w: torch.Tensor) -> torch.Tensor:
+    """:func:`split_planes` of ``w``, made once per kernel tensor: kept by
+    the tensor's identity while it lives, and made anew if it was changed
+    in place (its version counter moved; an inference tensor has none and
+    cannot be changed in place)."""
+    key = id(w)
+    version = 0 if w.is_inference() else w._version
+    with _planes_lock:
+        got = _planes.get(key)
+    if got is not None and got[0]() is w and got[1] == version:
+        return got[2]
+    planes = split_planes(w)
+    ref = weakref.ref(w, lambda _, key=key: _planes.pop(key, None))
+    with _planes_lock:
+        _planes[key] = (ref, version, planes)
+    return planes
+
+
+def esm_gemm_ref(x: torch.Tensor, planes: torch.Tensor, bias: torch.Tensor,
+                 epilogue: str = "bias",
+                 residual: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain twin of :func:`esm_gemm`: x's planes and W's, the six products
+    each a float32 matmul, summed in float32 smallest first, then the bias
+    and the epilogue."""
+    K = x.shape[-1]
+    xs = [v.to(torch.float32) for v in _split_bf16x3(x)]
+    ws = [v[:, :K].t().to(torch.float32) for v in planes]
+    y = None
+    for i, j in ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)):
+        term = xs[i] @ ws[j]
+        y = term if y is None else y + term
+    y = y + bias.to(torch.float32)
+    if epilogue == "gelu":
+        return F.gelu(y)
+    if epilogue == "residual":
+        return residual + y
+    return y
+
+
+def esm_gemm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+             epilogue: str = "bias",
+             residual: torch.Tensor | None = None) -> torch.Tensor:
+    """(M, N) float32 ``epilogue(x·w + bias)`` from the planes of ``w``,
+    by the kernel; every tensor on x's CUDA device.
+
+    Args:
+        x: (M, K) float32, K ≥ 1.
+        w: (K, N) float32 kernel, stored (in, out) as the port stores
+            dense kernels; its planes come from :func:`weight_planes`.
+        bias: (N,) float32.
+        epilogue: "bias", "gelu" (erf GELU after the bias, as
+            ``F.gelu``) or "residual" (``residual + (x·w + bias)``).
+        residual: (M, N) float32, for the "residual" epilogue only.
+    """
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"epilogue must be one of {tuple(EPILOGUES)}")
+    if (epilogue == "residual") != (residual is not None):
+        raise ValueError("a residual goes with the 'residual' epilogue only")
+    M, K = x.shape
+    N = w.shape[1]
+    if w.shape[0] != K or bias.shape != (N,) or K < 1:
+        raise ValueError(f"x {tuple(x.shape)}, w {tuple(w.shape)} and bias "
+                         f"{tuple(bias.shape)} do not fit")
+    if x.device.type != "cuda":
+        raise ValueError(f"no split GEMM kernel for device {x.device}")
+    for name, t in (("x", x), ("w", w), ("bias", bias),
+                    ("residual", residual)):
+        if t is None:
+            continue
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if residual is not None and residual.shape != (M, N):
+        raise ValueError(f"residual must have shape {(M, N)}, got "
+                         f"{tuple(residual.shape)}")
+    planes = weight_planes(w)
+    # TMA reads rows of whole 16-byte units from a 16-byte aligned start.
+    if K % 4 or not x.is_contiguous() or x.data_ptr() % 16:
+        x = F.pad(x, (0, -K % 4)).contiguous()
+    bias = bias.contiguous()
+    residual = None if residual is None else residual.contiguous()
+    y = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    if M == 0 or N == 0:
+        return y
+    lib = _build.load_library()
+    code = _launch(x.device, lib.mdf_esm_gemm, x.data_ptr(),
+                   planes.data_ptr(), bias.data_ptr(),
+                   0 if residual is None else residual.data_ptr(),
+                   y.data_ptr(), M, N, K, x.shape[1], planes.shape[2],
+                   EPILOGUES[epilogue])
+    _build.check(lib, code, "esm_gemm")
+    count_launch(esm_gemm)
+    return y
+
+
+esm_gemm.launches = 0

@@ -815,3 +815,130 @@ def test_esm2_trunk_at_published_widths_on_card(cuda):
         use_highest_f32_precision()
     print(f"esm2 trunk on the card: float32 {exact:.3g}, TF32 {tf32:.3g}")
     assert exact < 5e-4 < tf32
+
+
+# -- the split GEMM of ESM-2's projections (csrc/esm_gemm.cu) -----------------
+
+# (K, N, epilogue) of the trunk's projections at the published widths.
+ESM_PROJECTIONS = {"qkv": (1280, 3840, "bias"), "out": (1280, 1280, "residual"),
+                   "fc1": (1280, 5120, "gelu"), "fc2": (5120, 1280, "residual")}
+
+
+def _esm_epilogue(y, epilogue, residual):
+    if epilogue == "gelu":
+        return torch.nn.functional.gelu(y)
+    return y if residual is None else residual + y
+
+
+@pytest.mark.parametrize("M", [4000, 33280 - 37])
+@pytest.mark.parametrize("proj", list(ESM_PROJECTIONS))
+def test_esm_gemm_against_float64(cuda, proj, M):
+    """The split kernel on a projection's shape, bias and epilogue against
+    float64: its widest error relative to |x|·|W| + |b| (+ |residual|) at
+    most twice that of ``torch.addmm`` in float32 with TF32 off (cuBLAS) on
+    the same inputs, with the same epilogue in float32."""
+    from metagenomic_deepfri_tpu_torch.ops import esm_gemm as eg
+
+    K, N, epilogue = ESM_PROJECTIONS[proj]
+    gen = torch.Generator(device=cuda).manual_seed(K + N + M)
+
+    def uniform(*shape, scale):
+        return (torch.rand(*shape, generator=gen, device=cuda) * 2 - 1) * scale
+
+    x = torch.randn(M, K, generator=gen, device=cuda)
+    w = uniform(K, N, scale=(6.0 / (K + N)) ** 0.5)
+    b = uniform(N, scale=0.1)
+    res = (torch.randn(M, N, generator=gen, device=cuda)
+           if epilogue == "residual" else None)
+    use_highest_f32_precision()
+    launches = eg.esm_gemm.launches
+    got = eg.esm_gemm(x, w, b, epilogue, res)
+    plain = _esm_epilogue(torch.addmm(b, x, w), epilogue, res)
+    assert eg.esm_gemm.launches == launches + 1
+    x64, w64, b64 = x.double(), w.double(), b.double()
+    want = _esm_epilogue(x64 @ w64 + b64, epilogue,
+                         None if res is None else res.double())
+    scale = x64.abs() @ w64.abs() + b64.abs()
+    if res is not None:
+        scale += res.double().abs()
+    split = float(((got.double() - want).abs() / scale).max())
+    cublas = float(((plain.double() - want).abs() / scale).max())
+    print(f"esm_gemm {proj} M={M}: split {split:.3g}, cuBLAS {cublas:.3g}")
+    assert torch.isfinite(got).all()
+    assert split <= 2 * cublas
+
+
+@pytest.mark.parametrize("operand", ["x", "w"])
+def test_esm_gemm_split_exact_at_float32_extremes(cuda, operand):
+    """Against the identity the product is the other operand bit for bit:
+    x's planes, split in the kernel's registers, and W's, split once on
+    the device, lose nothing from 2**-103 up to float32's largest value
+    (ragged rows and columns, signs and zeros included)."""
+    from metagenomic_deepfri_tpu_torch.ops import esm_gemm as eg
+
+    rng = np.random.default_rng(11)
+    K, other = 256, 300
+    v = (rng.choice([-1.0, 1.0], (other, K))
+         * 10.0 ** rng.uniform(-30, 30, (other, K))).astype(np.float32)
+    f32_max = float(torch.finfo(torch.float32).max)
+    v[0, :8] = (f32_max, -f32_max, 3.3962e38, -3.4e38, 2.0 ** -103,
+                -(2.0 ** -103), 0.0, -0.0)
+    v = torch.from_numpy(v).to(cuda)
+    eye = torch.eye(K, device=cuda)
+    use_highest_f32_precision()
+    if operand == "x":
+        got = eg.esm_gemm(v, eye, torch.zeros(K, device=cuda))
+        want = v
+    else:
+        got = eg.esm_gemm(eye, v.t().contiguous(),
+                          torch.zeros(other, device=cuda))
+        want = v.t()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_esm_linear_dispatch_on_card(cuda):
+    """With TF32 off every projection of the trunk takes the kernel (the
+    ``split`` counter 1 on every ``model/esm/gemm`` span, one launch each);
+    with TF32 on, and in float64, ``torch.addmm`` as before, bit for bit."""
+    import torch.nn.functional as F
+
+    from metagenomic_deepfri_tpu_torch import profiling
+    from metagenomic_deepfri_tpu_torch.models import esm2
+    from metagenomic_deepfri_tpu_torch.ops import esm_gemm as eg
+
+    cfg = esm2.ESM2Config(layers=3, dim=128, heads=4, ffn=512)
+    tree = esm2.init_esm2(cfg, torch.Generator(device=cuda).manual_seed(5),
+                          cuda)
+    tokens = torch.randint(0, 20, (4, 90), device=cuda)
+    lengths = torch.tensor([90, 40, 7, 0], device=cuda)
+    use_highest_f32_precision()
+    launches = eg.esm_gemm.launches
+    profiling.reset()
+    profiling.set_recording(True)
+    try:
+        with torch.inference_mode():
+            esm2.esm2_forward(tree, cfg, tokens, lengths)
+        got = [s for s in profiling.spans() if s.name == "model/esm/gemm"]
+    finally:
+        profiling.set_recording(None)
+        profiling.reset()
+    assert len(got) == 4 * cfg.layers
+    assert all(s.counts["split"] == 1 and s.counts["rows"] == 4 * 92
+               for s in got)
+    assert eg.esm_gemm.launches == launches + 4 * cfg.layers
+
+    p = tree["layers"][0]["fc1"]
+    x = torch.randn(2, 30, cfg.dim, device=cuda)
+    for dtype, tf32 in ((torch.float32, True), (torch.float64, False)):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            launches = eg.esm_gemm.launches
+            y = esm2._linear(p, x.to(dtype), dtype, "gelu")
+            want = F.gelu(torch.addmm(p["bias"].to(dtype),
+                                      x.to(dtype).reshape(-1, cfg.dim),
+                                      p["kernel"].to(dtype)))
+        finally:
+            use_highest_f32_precision()
+        assert torch.equal(y.reshape(want.shape), want)
+        assert eg.esm_gemm.launches == launches

@@ -243,6 +243,16 @@ def test_trunk_spans_and_counters():
     attn_ids = {s.id for s in by["model/esm/attn"]}
     assert all(s.parent in attn_ids for s in by["model/esm/sdpa"])
     assert all(s.parent == lm[0].id for s in by["model/esm/ffn"])
+    # Four projections a layer, each under model/esm/gemm: qkv and out in
+    # the attention span, fc1 and fc2 in the feed-forward one; split 0
+    # (torch.addmm) on the CPU.
+    gemm = [s for s in got if s.name == "model/esm/gemm"]
+    ffn_ids = {s.id for s in by["model/esm/ffn"]}
+    assert len(gemm) == 4 * TINY_ESM.layers
+    assert sum(s.parent in attn_ids for s in gemm) == 2 * TINY_ESM.layers
+    assert sum(s.parent in ffn_ids for s in gemm) == 2 * TINY_ESM.layers
+    assert {s.counts["rows"] for s in gemm} == {16 * 130}
+    assert all(s.counts["split"] == 0 for s in gemm)
 
 
 # -- (f) the alphabet and the batch rule ---------------------------------------------
