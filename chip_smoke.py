@@ -137,23 +137,30 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
     ms a forward and peak memory a rank; (d) ``bench_utils.
     run_mesh_benchmark``'s rows (engine and ring at fixed work over 1, 2,
     4, … cards).
-11. ESM-2's projections, E1 (``ops/esm_gemm.py``): ``esm_gemm`` on
+11. The trunks' projections, E1 (``ops/esm_gemm.py``): ``esm_gemm`` on
     ``qkv``, ``out``, ``fc1`` and ``fc2`` of ESM-2 650M (d 1280, FFN 5120)
     at M 33,280 (a batch's token slots) and 33,243 (a ragged edge), each
-    with its bias and epilogue (GELU; the residual add), against
-    ``esm_gemm_ref`` (relative to |x|·|W| + |b| (+ |residual|), within
-    2⁻²¹: a dropped plane reads ~2⁻¹⁹) and float64 (at most twice the
-    error of cuBLAS's ``torch.addmm`` in float32 with TF32 off on the same
-    inputs); x and W from 2⁻¹⁰³ to float32's largest against the identity,
-    bit for bit. Times each shape at M 33,280 (TFLOP/s beside cuBLAS's).
-    Then the mf GCN on the published ESM-2 trunk through
-    ``BatchedPredictor.predict_stream`` on 64 proteins of bucket 512, the
-    launch count zeroed just before: 4 E1 launches a layer and a batch,
-    ``split`` 1 on every ``model/esm/gemm`` span, scores finite and in
+    with its bias and epilogue (GELU; the residual add), and on ``qkv``,
+    ``o``, ``wi`` and ``wo`` of ProtT5-XL-UniRef50 (d 1024, inner 4096,
+    d_ff 16,384) at M 33,024, none with a bias (``bias=None``; nothing
+    after the product, the residual add, ReLU; K up to 16,384), against
+    ``esm_gemm_ref`` (relative to |x|·|W| + |b| (+ |residual|): each
+    element within 2⁻²¹ at ESM-2's shapes and 2⁻²⁰ at ProtT5's, and
+    normwise within 2⁻²³) and float64 (at most twice the error of cuBLAS's
+    ``torch.addmm`` or ``torch.mm`` in float32 with TF32 off on the same
+    inputs); at each shape a twin without its lo planes must fail both;
+    x and W from 2⁻¹⁰³ to float32's largest against the identity, bit for
+    bit. Times each shape at M 33,280 and 33,024 (TFLOP/s beside
+    cuBLAS's). Then the mf GCN on each published trunk, ESM-2's and
+    ProtT5's, through ``BatchedPredictor.predict_stream`` on 64 proteins
+    of bucket 512 (one batch), the launch count zeroed just before each: 4
+    E1 launches a layer and a batch (132 and 96), ``split`` 1 on every
+    ``model/esm/gemm`` or ``model/t5/gemm`` span, scores finite and in
     [0, 1].
 
 Last, the kernel summary (launches on the main path, phases 4–11, every
-rank's included; max |Δ|, ms, plain, device, bound and library ms), the
+rank's included; max |Δ|, ms, plain, device, bound and library ms; E1 at
+ESM-2's fc1 and at ProtT5's wo), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --multi-only`` runs phases 1, 2 and 10 only, with
@@ -190,7 +197,7 @@ try:
         BatchedPredictor, ModelHandle, _pad_batch, _pad_batch_coords)
     from metagenomic_deepfri_tpu_torch.batching.spmm_table import \
         resolve_spmm
-    from metagenomic_deepfri_tpu_torch.models import deepfri, esm2
+    from metagenomic_deepfri_tpu_torch.models import deepfri, esm2, prott5
     from metagenomic_deepfri_tpu_torch.models.convert import (
         gcn_params_from_numpy, gcn_params_to_numpy)
     from metagenomic_deepfri_tpu_torch.models.lstm import lstm_stack_forward
@@ -281,17 +288,35 @@ P10_ROUNDS = 3
 P10_L = 4096
 P10_LENGTHS = (P10_L, P10_L - 301)
 P10_REPS = 3
-# Phase 11: ESM-2 650M's projections, (K, N, epilogue) of qkv, out, fc1, fc2.
+# Phase 11: ESM-2 650M's projections, (K, N, epilogue) of qkv, out, fc1, fc2,
+# each with its bias.
 ESM_PROJECTIONS = {"qkv": (1280, 3840, "bias"),
                    "out": (1280, 1280, "residual"),
                    "fc1": (1280, 5120, "gelu"),
                    "fc2": (5120, 1280, "residual")}
 # A batch's token slots (256 rows of 130 at bucket 128), and a ragged edge.
 ESM_ROWS = (33280, 33280 - 37)
+# ProtT5-XL-UniRef50's projections, (K, N, epilogue) of qkv, o, wi, wo, none
+# with a bias; a batch's token slots (256 rows of 129 at bucket 128).
+T5_PROJECTIONS = {"qkv": (1024, 12288, "bias"),
+                  "o": (4096, 1024, "residual"),
+                  "wi": (1024, 16384, "relu"),
+                  "wo": (16384, 1024, "residual")}
+T5_ROWS = (33024,)
 # E1 against its twin, relative to |x|·|W| + |b| (+ |residual|): both round
-# in float32 (~2e-7); a dropped lo plane reads 1.6e-6 to 3.5e-6.
+# in float32. Each element: within 2^-21 at ESM-2's shapes (a dropped lo
+# plane reads 1.6e-6 to 3.5e-6), 2^-20 at ProtT5's (the twin's float32 sums
+# run to K 16,384, where a dropped lo plane reads ~1e-6 and no elementwise
+# bound tells the two apart). Normwise (the difference's RMS over the
+# scale's): within 2^-23 at every shape, where a twin without its lo planes
+# reads 2e-7 (K 16,384) to 8e-7 (K 1,024) on the CPU; phase 11 checks on
+# the card that such a twin exceeds it at each shape.
 ESM_TWIN_RTOL = 2.0 ** -21
-ESM_PROTEINS = 64      # one batch at bucket 512 (esm_batch_size(512) rows)
+T5_TWIN_RTOL = 2.0 ** -20
+GEMM_TWIN_RMS = 2.0 ** -23
+# The main-path batch of each trunk: one batch at bucket 512
+# (esm_batch_size(512) rows).
+ESM_PROTEINS = 64
 ESM_LENGTHS = (257, 512)
 # Config overrides (empty: the published width) of phase 5's and phase 10's
 # GCNs, for rehearsals on the CPU.
@@ -309,6 +334,7 @@ REPLACES = {
         "metagenomic_deepfri_tpu/ops/graphconv_pallas.py:275",
     "contact_map": "metagenomic_deepfri_tpu/ops/contact.py:193",
     "esm_gemm": None,  # the port's own: the JAX package has no ESM-2
+    # or ProtT5
 }
 SYMBOLS = {
     "contact_degrees": "contact_degrees_kernel",
@@ -523,10 +549,18 @@ def phase_kernels(dev):
     return err
 
 
-def esm_operands(proj: str, M: int, dev):
-    """x, W, b, the epilogue and its residual (or None) of one projection
-    at M rows: x normal, W Glorot-uniform, b uniform in (-0.1, 0.1)."""
-    K, N, epilogue = ESM_PROJECTIONS[proj]
+def gemm_sets():
+    """Phase 11's shapes: (trunk, projections, rows, with a bias, the
+    elementwise tolerance to the twin) of ESM-2 and of ProtT5."""
+    return (("esm2", ESM_PROJECTIONS, ESM_ROWS, True, ESM_TWIN_RTOL),
+            ("prott5", T5_PROJECTIONS, T5_ROWS, False, T5_TWIN_RTOL))
+
+
+def gemm_operands(shape, M: int, bias: bool, dev):
+    """x, W, b (None without a bias), the epilogue and its residual (or
+    None) of one projection ``(K, N, epilogue)`` at M rows: x normal, W
+    Glorot-uniform, b uniform in (-0.1, 0.1)."""
+    K, N, epilogue = shape
     gen = torch.Generator(device=dev).manual_seed(SEED + K + N + M)
 
     def uniform(*shape, scale):
@@ -534,17 +568,36 @@ def esm_operands(proj: str, M: int, dev):
 
     x = torch.randn(M, K, generator=gen, device=dev)
     w = uniform(K, N, scale=(6.0 / (K + N)) ** 0.5)
-    b = uniform(N, scale=0.1)
+    b = uniform(N, scale=0.1) if bias else None
     res = (torch.randn(M, N, generator=gen, device=dev)
            if epilogue == "residual" else None)
     return x, w, b, epilogue, res
 
 
 def esm_epilogue(y, epilogue: str, residual):
-    """The trunk's epilogue after ``torch.addmm``, as it ran before E1."""
+    """The trunks' epilogue after the product and its bias, as PyTorch
+    computes it."""
     if epilogue == "gelu":
         return torch.nn.functional.gelu(y)
+    if epilogue == "relu":
+        return torch.relu(y)
     return y if residual is None else residual + y
+
+
+def library_gemm(x, w, b, epilogue: str, residual):
+    """The trunks' path before E1: cuBLAS in float32 (TF32 off),
+    ``torch.addmm`` (``torch.mm`` without a bias), then the epilogue."""
+    y = torch.mm(x, w) if b is None else torch.addmm(b, x, w)
+    return esm_epilogue(y, epilogue, residual)
+
+
+def without_lo(x, planes):
+    """x and W's planes with their lo planes dropped: what the twin reads
+    for a kernel that lost them."""
+    hi, mid, _ = eg._split_bf16x3(x)
+    cut = planes.clone()
+    cut[2].zero_()
+    return hi.float() + mid.float(), cut
 
 
 def esm_gemm_checks(dev) -> float:
@@ -552,35 +605,11 @@ def esm_gemm_checks(dev) -> float:
     max |Δ| to its twin."""
     worst = 0.0
     with highest_f32_precision():
-        for proj in ESM_PROJECTIONS:
-            for M in ESM_ROWS:
-                x, w, b, epi, res = esm_operands(proj, M, dev)
-                got = eg.esm_gemm(x, w, b, epi, res)
-                twin = eg.esm_gemm_ref(x, eg.weight_planes(w), b, epi, res)
-                plain = esm_epilogue(torch.addmm(b, x, w), epi, res)
-                x64, w64 = x.double(), w.double()
-                want = esm_epilogue(x64 @ w64 + b.double(), epi,
-                                    None if res is None else res.double())
-                scale = x64.abs() @ w64.abs() + b.double().abs()
-                if res is not None:
-                    scale += res.double().abs()
-                err = {k: float(((v.double() - r).abs() / scale).max())
-                       for k, v, r in (("split", got, want),
-                                       ("twin", twin, want),
-                                       ("cublas", plain, want),
-                                       ("to_twin", got, twin.double()))}
-                worst = max(worst, float((got - twin).abs().max()))
-                log(f"  esm_gemm {proj} M={M} ({epi}): relative error "
-                    f"{json.dumps(err)}")
-                if not bool(torch.isfinite(got).all()):
-                    raise AssertionError(f"esm_gemm {proj} M={M}: not finite")
-                if not err["split"] <= 2 * err["cublas"]:
-                    raise AssertionError(f"esm_gemm {proj} M={M}: over twice "
-                                         "cuBLAS float32's error")
-                if not err["to_twin"] <= ESM_TWIN_RTOL:
-                    raise AssertionError(f"esm_gemm {proj} M={M}: differs "
-                                         "from its twin")
-                del x64, w64, want, scale
+        for trunk, table, rows, bias, rtol in gemm_sets():
+            for proj, shape in table.items():
+                for M in rows:
+                    worst = max(worst, gemm_check(trunk, proj, shape, M, bias,
+                                                  rtol, dev))
         rng = np.random.default_rng(SEED)
         K, other = 256, 300
         v = (rng.choice([-1.0, 1.0], (other, K))
@@ -602,41 +631,98 @@ def esm_gemm_checks(dev) -> float:
     return worst
 
 
-def esm_gemm_times(dev) -> list:
-    """E1 and its twin on each projection at M = ESM_ROWS[0], with the
-    launch's bound (the float32 work, 2·M·K·N, at the tensor cores' bf16
-    rate, or its bytes at HBM3's, the larger) and the trunk's former
-    yardstick: ``torch.addmm`` in float32 with TF32 off (cuBLAS), then the
-    epilogue."""
-    rows = []
-    M = ESM_ROWS[0]
-    with highest_f32_precision():
-        for proj, (K, N, _) in ESM_PROJECTIONS.items():
-            x, w, b, epi, res = esm_operands(proj, M, dev)
-            planes = eg.weight_planes(w)
-            flops = 2 * M * K * N
-            nbytes = 4 * M * K + 6 * K * N + 4 * N + 4 * M * N * (
-                1 if res is None else 2)
-            t_ops = flops / BF16_TENSOR_FLOP_PER_S
-            t_bytes = nbytes / HBM_BYTES_PER_S
-            row = timed_row(
-                "esm_gemm", lambda: eg.esm_gemm(x, w, b, epi, res),
-                lambda: eg.esm_gemm_ref(x, planes, b, epi, res),
-                (max(t_ops, t_bytes) * 1e3,
-                 "bytes" if t_bytes >= t_ops else "operations"),
-                proj=proj, M=M, K=K, N=N, library_ms=cuda_ms(
-                    lambda: esm_epilogue(torch.addmm(b, x, w), epi, res)))
-            row["tflop_s"] = flops / row["ms"] / 1e9
-            row["library_tflop_s"] = flops / row["library_ms"] / 1e9
-            rows.append(row)
+def gemm_check(trunk: str, proj: str, shape, M: int, bias: bool,
+               rtol: float, dev) -> float:
+    """One projection of phase 11: E1 against its twin and float64, and a
+    twin without its lo planes against the same bounds; returns E1's max
+    |Δ| to its twin."""
+    x, w, b, epi, res = gemm_operands(shape, M, bias, dev)
+    got = eg.esm_gemm(x, w, b, epi, res)
+    planes = eg.weight_planes(w)
+    twin = eg.esm_gemm_ref(x, planes, b, epi, res)
+    cut = eg.esm_gemm_ref(*without_lo(x, planes), b, epi, res)
+    x64, w64 = x.double(), w.double()
+    want = x64 @ w64
+    scale = x64.abs() @ w64.abs()
+    del x64, w64
+    if b is not None:
+        want += b.double()
+        scale += b.double().abs()
+    want = esm_epilogue(want, epi, None if res is None else res.double())
+    if res is not None:
+        scale += res.double().abs()
+    scale_norm = scale.norm()
+
+    def rel(a, r) -> list:
+        """Max and normwise |a − r| over the scale."""
+        d = (a.double() - r).abs_()
+        return [float((d / scale).max()), float(d.norm() / scale_norm)]
+
+    err = {"split": rel(got, want),
+           "twin": rel(twin, want),
+           "cublas": rel(library_gemm(x, w, b, epi, res), want),
+           "to_twin": rel(got, twin.double()),
+           "cut_to_twin": rel(cut, twin.double()),
+           "cut": rel(cut, want)}
+    worst = float((got - twin).abs().max())
+    log(f"  esm_gemm {trunk} {proj} M={M} ({epi} epilogue, "
+        f"{'a' if bias else 'no'} bias): relative error [max, normwise] "
+        f"{json.dumps(err)}")
+    name = f"esm_gemm {trunk} {proj} M={M}"
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: not finite")
+    if not err["split"][0] <= 2 * err["cublas"][0]:
+        raise AssertionError(f"{name}: over twice cuBLAS float32's error")
+    if not (err["to_twin"][0] <= rtol and err["to_twin"][1] <= GEMM_TWIN_RMS):
+        raise AssertionError(f"{name}: differs from its twin")
+    if not (err["cut_to_twin"][1] > GEMM_TWIN_RMS
+            and err["cut"][0] > 2 * err["cublas"][0]):
+        raise AssertionError(f"{name}: the bounds would pass a kernel that "
+                             "dropped its lo planes")
+    del want, scale, got, twin, cut
     torch.cuda.empty_cache()
+    return worst
+
+
+def esm_gemm_times(dev) -> list:
+    """E1 and its twin on each projection of both trunks at their first
+    row count, with the launch's bound (the float32 work, 2·M·K·N, at the
+    tensor cores' bf16 rate, or its bytes at HBM3's, the larger) and the
+    trunks' former yardstick, :func:`library_gemm`."""
+    rows = []
+    with highest_f32_precision():
+        for trunk, table, counts, bias, _ in gemm_sets():
+            M = counts[0]
+            for proj, shape in table.items():
+                K, N, _ = shape
+                x, w, b, epi, res = gemm_operands(shape, M, bias, dev)
+                planes = eg.weight_planes(w)
+                flops = 2 * M * K * N
+                nbytes = (4 * M * K + 6 * K * N + (4 * N if bias else 0)
+                          + 4 * M * N * (1 if res is None else 2))
+                t_ops = flops / BF16_TENSOR_FLOP_PER_S
+                t_bytes = nbytes / HBM_BYTES_PER_S
+                row = timed_row(
+                    "esm_gemm", lambda: eg.esm_gemm(x, w, b, epi, res),
+                    lambda: eg.esm_gemm_ref(x, planes, b, epi, res),
+                    (max(t_ops, t_bytes) * 1e3,
+                     "bytes" if t_bytes >= t_ops else "operations"),
+                    trunk=trunk, proj=proj, M=M, K=K, N=N,
+                    library_ms=cuda_ms(
+                        lambda: library_gemm(x, w, b, epi, res)))
+                row["tflop_s"] = flops / row["ms"] / 1e9
+                row["library_tflop_s"] = flops / row["library_ms"] / 1e9
+                rows.append(row)
+                del x, w, b, res, planes
+                torch.cuda.empty_cache()
     return rows
 
 
-def esm_main_path(dev, smi) -> int:
-    """Phase 11's main-path run (see the module's docstring); returns E1's
-    launches."""
-    cfg = deepfri.ESMGCNConfig(n_labels=MODES["mf"], esm=esm2.ESM2Config())
+def trunk_main_path(dev, smi, cfg, span: str) -> int:
+    """Phase 11's main-path run of one trunk (see the module's docstring);
+    returns E1's launches."""
+    trunk = deepfri.trunk_of(cfg)
+    name = type(trunk).__name__
     params = deepfri.init_gcn(cfg, torch.Generator(device=dev).manual_seed(
         SEED), dev)
     engine = BatchedPredictor({"mf": ModelHandle("gcn", "mf", cfg, params)},
@@ -654,22 +740,22 @@ def esm_main_path(dev, smi) -> int:
     profiling.set_recording(True)
     try:
         out, n, secs = run_stream(engine, items, modes=["mf"])
-        gemm = [s for s in profiling.spans() if s.name == "model/esm/gemm"]
+        gemm = [s for s in profiling.spans() if s.name == span]
     finally:
         profiling.set_recording(None)
         profiling.reset()
     launches = eg.esm_gemm.launches
-    want = 4 * cfg.esm.layers * n_batches
+    want = 4 * trunk.layers * n_batches
     split = sum(s.counts["split"] for s in gemm)
-    log(f"  esm2 mf GCN: {n} proteins in {n_batches} batch(es) of "
+    log(f"  {name} mf GCN: {n} proteins in {n_batches} batch(es) of "
         f"{sorted(per_bucket)} in {secs:.2f} s (first pass) on {smi}; "
-        f"esm_gemm launches {launches}, model/esm/gemm spans {len(gemm)} "
+        f"esm_gemm launches {launches}, {span} spans {len(gemm)} "
         f"with split 1 on {split}; expected {want} of each")
     if n != ESM_PROTEINS:
-        raise AssertionError(f"esm2: processed {n} of {ESM_PROTEINS}")
+        raise AssertionError(f"{name}: processed {n} of {ESM_PROTEINS}")
     check_scores(out, items, modes=["mf"])
     if not launches == len(gemm) == split == want:
-        raise AssertionError("esm2: the projections did not all take E1")
+        raise AssertionError(f"{name}: the projections did not all take E1")
     del engine, params
     torch.cuda.empty_cache()
     return launches
@@ -678,13 +764,20 @@ def esm_main_path(dev, smi) -> int:
 def phase_esm(dev, smi):
     """Phase 11: returns E1's max |Δ| to its twin, its timed rows and its
     launches on the main path."""
-    log("phase 11: ESM-2's projections (esm_gemm) at the published widths")
+    log("phase 11: the trunks' projections (esm_gemm) at the published "
+        "widths: ESM-2 650M's and ProtT5-XL-UniRef50's")
     worst = esm_gemm_checks(dev)
     rows = esm_gemm_times(dev)
     log(f"esm_gemm times (CUDA events, mean of 10) on {smi}:")
     for r in rows:
         log(f"  {json.dumps(r)}")
-    return worst, rows, esm_main_path(dev, smi)
+    launches = sum(trunk_main_path(dev, smi, cfg, span) for cfg, span in (
+        (deepfri.ESMGCNConfig(n_labels=MODES["mf"], esm=esm2.ESM2Config()),
+         "model/esm/gemm"),
+        (deepfri.ProtT5GCNConfig(n_labels=MODES["mf"],
+                                 t5=prott5.ProtT5Config()),
+         "model/t5/gemm")))
+    return worst, rows, launches
 
 
 def make_handles(dtype: str, dev):
@@ -2510,28 +2603,34 @@ def main(argv=None) -> int:
             for name, n in counts.items():
                 launches[name] += n
 
-    # Phase 11: ESM-2's projections on E1, alone and on the main path.
+    # Phase 11: the trunks' projections on E1, alone and on the main path.
     errors["esm_gemm"], esm_times, launches["esm_gemm"] = phase_esm(dev, smi)
 
-    def headline(name):
+    def headline(name, shape):
         if name == "contact_map":  # the fine-tuning batch: B=8, bucket 512
             return next(r for r in cmap_times if r["B"] == FT_BATCH
                         and r["bucket"] == 512)
-        if name == "esm_gemm":  # fc1, the widest of the four
-            return next(r for r in esm_times if r["proj"] == "fc1")
+        if name == "esm_gemm":  # the (trunk, projection) named
+            return next(r for r in esm_times
+                        if (r["trunk"], r["proj"]) == shape)
         return next(r for r in times if r["kernel"] == name
                     and r["bucket"] == 512 and r["dtype"] == "float32"
                     and r["D"] in (None, 1024))
 
+    # E1 twice: ESM-2's fc1 (the widest of its four) and ProtT5's wo (K
+    # 16,384, no bias, the residual add).
     summary = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCES[name],
+        {"name": name, **({"shape": " ".join(shape)} if shape else {}),
+         "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": errors[name],
-         **{k: headline(name)[k] for k in (
+         **{k: headline(name, shape)[k] for k in (
              "ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
              "library_ms")}}
-        for name in ("graphconv_aggregate", "contact_degrees",
-                     "contact_map", "esm_gemm")]}
+        for name, shape in (("graphconv_aggregate", None),
+                            ("contact_degrees", None), ("contact_map", None),
+                            ("esm_gemm", ("esm2", "fc1")),
+                            ("esm_gemm", ("prott5", "wo")))]}
     log(json.dumps(summary))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {

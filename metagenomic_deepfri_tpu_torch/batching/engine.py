@@ -66,8 +66,8 @@ from metagenomic_deepfri_tpu_torch.batching.spmm_table import (SPMM_POLICIES,
                                                                resolve_spmm)
 from metagenomic_deepfri_tpu_torch.models.convert import gcn_params_from_numpy
 from metagenomic_deepfri_tpu_torch.models.deepfri import (
-    GCNConfig, cnn_forward, esm_of, gcn_forward, gcn_forward_fused,
-    gcn_forward_multimode)
+    GCNConfig, cnn_forward, gcn_forward, gcn_forward_fused,
+    gcn_forward_multimode, trunk_of)
 from metagenomic_deepfri_tpu_torch.ops.cmap_align import \
     aligned_contacts_from_coords
 from metagenomic_deepfri_tpu_torch.ops.one_hot import seq2tokens
@@ -362,8 +362,8 @@ class BatchedPredictor:
                 getattr(h.config, "compute_dtype", "float32") == "float32"
                 for h in handles):
             use_highest_f32_precision()
-        self._esm_trunk = any(esm_of(h.config) is not None
-                              for h in self.gcn_models.values())
+        self._transformer_trunk = any(trunk_of(h.config) is not None
+                                      for h in self.gcn_models.values())
         if len(self.gcn_models) >= 2:
             _fill_fingerprints(list(self.gcn_models.values()))
         self._gcn_shared = _detect_shared_gcn(self.gcn_models)
@@ -410,11 +410,11 @@ class BatchedPredictor:
 
     def _steady_batch(self, bucket: int, net: str = "gcn_coords") -> int:
         """The full batch size for a bucket: the one-device size (by token
-        slots where a GCN mode has an ESM-2 trunk) times the device count,
-        capped."""
+        slots where a GCN mode has a transformer trunk, ESM-2 or ProtT5)
+        times the device count, capped."""
         if net == "cnn":
             batch = cnn_batch_size(bucket)
-        elif self._esm_trunk:
+        elif self._transformer_trunk:
             batch = esm_batch_size(bucket)
         else:
             batch = gcn_batch_size(bucket)

@@ -1,8 +1,10 @@
-// Float32-exact GEMM on Hopper's tensor cores for ESM-2's projections
-// (sm_90a):  y = epilogue(x W + b)
+// Float32-exact GEMM on Hopper's tensor cores for the transformer trunks'
+// projections (ESM-2's and ProtT5's; sm_90a):  y = epilogue(x W [+ b])
 //   x (M, K) float32, W given as three bf16 planes (3, N, Kp) K-major,
-//   b (N) float32, y (M, N) float32; epilogue: the bias alone, erf-GELU
-//   after it, or a float32 residual added after it.
+//   b (N) float32 or none, y (M, N) float32; epilogue: nothing more,
+//   erf-GELU, ReLU, or a float32 residual added. Bias or none and the
+//   epilogue are template parameters, so each kernel instance's main loop
+//   is the same code and only its store differs.
 //
 // Replaces no TPU kernel: the JAX package leaves these products to XLA.
 // It exists because PyTorch runs a float32 matmul with TF32 off on the
@@ -24,7 +26,8 @@
 // sum is added to the running sum in registers, rounded to nearest.
 //
 // Bound: operations. At M = 33,280 token slots, 2MKN is 0.33 TFLOP (qkv)
-// to 0.44 (fc1, fc2) against ~0.34 GB of float32 in and out: six bf16
+// to 0.44 (fc1, fc2) against ~0.34 GB of float32 in and out (ProtT5's
+// wi and wo at M = 33,024: 1.11 TFLOP against 2.3 GB): six bf16
 // products at 989 TFLOP/s give a ceiling of 165 TFLOP/s of float32 work
 // against the SIMT units' 67.
 //
@@ -45,8 +48,9 @@
 //     from registers, B from shared memory) while the next stage's
 //     fragments are loaded and split into the other of two fragment sets;
 //     a stage goes back to the producer once its products have completed.
-//   - The epilogue adds the bias, then GELU or the residual, and stores
-//     float2s; rows >= M and columns >= N are not written.
+//   - The epilogue adds the bias (where there is one), then GELU, ReLU or
+//     the residual, and stores float2s; rows >= M and columns >= N are not
+//     written.
 // Grid: the N tiles of one row tile next to each other, so a row tile of x
 // is read from device memory once and from L2 by its other column tiles.
 //
@@ -81,7 +85,7 @@ constexpr int kPlaneBytes = kBN * kBK * 2;
 constexpr int kABytes = kBM * kBK * 4;
 constexpr int kStageBytes = kABytes + 3 * kPlaneBytes;
 
-enum Epilogue { kBias = 0, kGelu = 1, kResidual = 2 };
+enum Epilogue { kBias = 0, kGelu = 1, kResidual = 2, kRelu = 3 };
 
 struct __align__(1024) Stage {
   float a[kBM * kBK];                       // 128-byte swizzle
@@ -128,9 +132,14 @@ __device__ __forceinline__ float gelu(float v) {
   return v * 0.5f * (1.0f + erff(v * 0.70710678118654752440f));
 }
 
+__device__ __forceinline__ float relu(float v) {
+  // torch.relu's: NaN stays NaN.
+  return v < 0.f ? 0.f : v;
+}
+
 }  // namespace esm
 
-template <int kEpilogue>
+template <int kEpilogue, bool kHasBias>
 __global__ void __launch_bounds__(esm::kThreads, 1)
 esm_gemm_kernel(const float* __restrict__ bias,
                 const float* __restrict__ residual, float* __restrict__ y,
@@ -278,18 +287,28 @@ esm_gemm_kernel(const float* __restrict__ bias,
     const int n = n0 + 8 * c + 2 * q;
     if (n >= N) continue;
     const bool two = n + 1 < N;
-    const float b0 = bias[n];
-    const float b1 = two ? bias[n + 1] : 0.f;
+    float b0 = 0.f, b1 = 0.f;
+    if constexpr (kHasBias) {
+      b0 = bias[n];
+      b1 = two ? bias[n + 1] : 0.f;
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int m = m0 + r0 + 8 * h;
       if (m >= M) continue;
-      float v0 = __fadd_rn(sum[4 * c + 2 * h], b0);
-      float v1 = __fadd_rn(sum[4 * c + 2 * h + 1], b1);
+      float v0 = sum[4 * c + 2 * h];
+      float v1 = sum[4 * c + 2 * h + 1];
+      if constexpr (kHasBias) {
+        v0 = __fadd_rn(v0, b0);
+        v1 = __fadd_rn(v1, b1);
+      }
       const size_t at = static_cast<size_t>(m) * N + n;
       if constexpr (kEpilogue == kGelu) {
         v0 = gelu(v0);
         v1 = gelu(v1);
+      } else if constexpr (kEpilogue == kRelu) {
+        v0 = relu(v0);
+        v1 = relu(v1);
       } else if constexpr (kEpilogue == kResidual) {
         v0 = __fadd_rn(residual[at], v0);
         if (two) v1 = __fadd_rn(residual[at + 1], v1);
@@ -338,7 +357,7 @@ cudaError_t tensor_maps(CUtensorMap* xmap, CUtensorMap* wmap, const float* x,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int kEpilogue>
+template <int kEpilogue, bool kHasBias>
 cudaError_t launch(const float* x, const void* planes, const float* bias,
                    const float* residual, float* y, int M, int N, int K,
                    int ldx, int ldw, cudaStream_t stream) {
@@ -346,7 +365,7 @@ cudaError_t launch(const float* x, const void* planes, const float* bias,
   // Dynamic smem limit set, per device (host threads may launch at once,
   // each on its own device; setting it twice is harmless).
   static std::atomic<bool> ready[kMaxDevices];
-  auto kernel = esm_gemm_kernel<kEpilogue>;
+  auto kernel = esm_gemm_kernel<kEpilogue, kHasBias>;
   const int bytes = static_cast<int>(sizeof(esm::Smem)) + 1024;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -367,13 +386,27 @@ cudaError_t launch(const float* x, const void* planes, const float* bias,
   return cudaGetLastError();
 }
 
+// The instance for a bias or none.
+template <int kEpilogue>
+cudaError_t launch_epilogue(const float* x, const void* planes,
+                            const float* bias, const float* residual,
+                            float* y, int M, int N, int K, int ldx, int ldw,
+                            cudaStream_t stream) {
+  return bias != nullptr
+             ? launch<kEpilogue, true>(x, planes, bias, residual, y, M, N, K,
+                                       ldx, ldw, stream)
+             : launch<kEpilogue, false>(x, planes, bias, residual, y, M, N,
+                                        K, ldx, ldw, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// y (M, N) = epilogue(x (M, K) W + bias). planes: W's (3, N, ldw) bf16
+// y (M, N) = epilogue(x (M, K) W [+ bias]). planes: W's (3, N, ldw) bf16
 // split, ldw >= K a multiple of 8, zero past K; x 16-byte aligned with ldx
-// a multiple of 4; epilogue 0 (bias), 1 (GELU), 2 (residual (M, N) added).
+// a multiple of 4; bias (N) or null for none; epilogue 0 (nothing more),
+// 1 (GELU), 2 (residual (M, N) added), 3 (ReLU).
 int mdf_esm_gemm(const void* x, const void* planes, const void* bias,
                  const void* residual, void* y, int M, int N, int K, int ldx,
                  int ldw, int epilogue, void* stream) {
@@ -385,14 +418,20 @@ int mdf_esm_gemm(const void* x, const void* planes, const void* bias,
   cudaError_t err;
   switch (epilogue) {
     case esm::kBias:
-      err = launch<esm::kBias>(xp, planes, bp, rp, yp, M, N, K, ldx, ldw, s);
+      err = launch_epilogue<esm::kBias>(xp, planes, bp, rp, yp, M, N, K, ldx,
+                                        ldw, s);
       break;
     case esm::kGelu:
-      err = launch<esm::kGelu>(xp, planes, bp, rp, yp, M, N, K, ldx, ldw, s);
+      err = launch_epilogue<esm::kGelu>(xp, planes, bp, rp, yp, M, N, K, ldx,
+                                        ldw, s);
       break;
     case esm::kResidual:
-      err = launch<esm::kResidual>(xp, planes, bp, rp, yp, M, N, K, ldx, ldw,
-                                   s);
+      err = launch_epilogue<esm::kResidual>(xp, planes, bp, rp, yp, M, N, K,
+                                            ldx, ldw, s);
+      break;
+    case esm::kRelu:
+      err = launch_epilogue<esm::kRelu>(xp, planes, bp, rp, yp, M, N, K, ldx,
+                                        ldw, s);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from metagenomic_deepfri_tpu_torch.models.esm2 import ESM2Config
+from metagenomic_deepfri_tpu_torch.models.prott5 import ProtT5Config
 
 
 def gcn_params_from_numpy(tree, device,
@@ -115,4 +116,57 @@ def esm2_from_hf_state_dict(state: Mapping, heads: int) -> tuple:
     vocab, dim = tree["embed"].shape
     cfg = ESM2Config(layers=n_layers, dim=dim, heads=heads,
                      ffn=layers[0]["fc1"]["kernel"].shape[1], vocab=vocab)
+    return cfg, tree
+
+
+def prott5_from_hf_state_dict(state: Mapping, heads: int,
+                              max_distance: int = 128,
+                              eps: float = 1e-6) -> tuple:
+    """``(ProtT5Config, encoder tree)`` of a T5 encoder state dict in the
+    ``T5EncoderModel`` key layout (``shared.weight``,
+    ``encoder.block.{i}.layer.0.SelfAttention.{q,k,v,o}.weight``, the
+    ``relative_attention_bias.weight`` of block 0,
+    ``layer.0.layer_norm``, ``layer.1.DenseReluDense.{wi,wo}``,
+    ``layer.1.layer_norm``, ``encoder.final_layer_norm``), as
+    :mod:`.prott5` lays the trunk out: ``nn.Linear`` weights (out, in)
+    transposed to kernels (in, out), q, k and v side by side in one ``qkv``
+    kernel. Leaves are float32 numpy arrays. The layer count, widths,
+    bucket count and vocabulary come from the shapes; ``heads`` (which fixes
+    d_kv), the bucket's ``max_distance`` and the RMS ``eps`` from the
+    arguments (T5's defaults). A decoder's keys, if present, are not
+    read."""
+    def get(name):
+        if name not in state:
+            raise KeyError(f"no {name!r} in the T5 encoder state dict")
+        return _host(state[name])
+
+    def kernel(name):
+        return get(name + ".weight").T.copy()
+
+    n_layers = 1 + max(int(m.group(1)) for m in (
+        re.match(r"encoder\.block\.(\d+)\.", k) for k in state) if m)
+    layers = []
+    for i in range(n_layers):
+        b = f"encoder.block.{i}.layer."
+        a = b + "0.SelfAttention."
+        layers.append({
+            "ln1": {"scale": get(b + "0.layer_norm.weight")},
+            "qkv": {"kernel": np.concatenate(
+                [kernel(a + n) for n in ("q", "k", "v")], axis=1)},
+            "o": {"kernel": kernel(a + "o")},
+            "ln2": {"scale": get(b + "1.layer_norm.weight")},
+            "wi": {"kernel": kernel(b + "1.DenseReluDense.wi")},
+            "wo": {"kernel": kernel(b + "1.DenseReluDense.wo")}})
+    tree = {"embed": get("shared.weight"),
+            "rel_bias": get("encoder.block.0.layer.0.SelfAttention."
+                            "relative_attention_bias.weight"),
+            "layers": layers,
+            "ln_final": {"scale": get("encoder.final_layer_norm.weight")}}
+    vocab, dim = tree["embed"].shape
+    inner = layers[0]["o"]["kernel"].shape[0]
+    cfg = ProtT5Config(layers=n_layers, dim=dim, heads=heads,
+                       d_kv=inner // heads,
+                       ffn=layers[0]["wi"]["kernel"].shape[1],
+                       buckets=tree["rel_bias"].shape[0],
+                       max_distance=max_distance, eps=eps, vocab=vocab)
     return cfg, tree

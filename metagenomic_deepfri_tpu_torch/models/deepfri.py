@@ -9,8 +9,9 @@ modules.
 
 GCN:   one-hot(26) ─┬─ LSTM-LM stack ── Dense(no bias) ──┐
                     └─ Dense(bias) ──────────────────────┴─ add → ReLU
-       (an ESMGCNConfig runs ESM-2 on the tokens (:mod:`.esm2`) in the
-       LSTM-LM's place)
+       (an ESMGCNConfig runs ESM-2 (:mod:`.esm2`), a ProtT5GCNConfig
+       ProtT5's encoder (:mod:`.prott5`), on the tokens in the LSTM-LM's
+       place)
        → 3 × GraphConv(512, ReLU):  Hₗ₊₁ = relu(Â · Hₗ · Wₗ)
        → concat(H₁‖H₂‖H₃) → masked sum-pool over L
        → Dense(1024, ReLU) → Dense(2·n_labels) → reshape (n_labels, 2)
@@ -25,17 +26,20 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from metagenomic_deepfri_tpu_torch.models import esm2, prott5
 from metagenomic_deepfri_tpu_torch.models.esm2 import (ESM2Config,
                                                        esm2_forward,
-                                                       init_esm2,
-                                                       trunk_counts)
+                                                       init_esm2)
+from metagenomic_deepfri_tpu_torch.models.prott5 import (ProtT5Config,
+                                                         init_prott5,
+                                                         prott5_forward)
 from metagenomic_deepfri_tpu_torch.models.lstm import (accumulate_dtype,
                                                        init_lstm_stack,
                                                        lstm_stack_forward)
@@ -75,9 +79,18 @@ class ESMGCNConfig(GCNConfig):
     esm: ESM2Config = ESM2Config()
 
 
-def esm_of(config) -> Optional[ESM2Config]:
-    """The ESM-2 trunk's widths of a GCN config, None for an LSTM-LM."""
-    return getattr(config, "esm", None)
+@dataclass(frozen=True)
+class ProtT5GCNConfig(GCNConfig):
+    """A GCN whose residue LM is ProtT5-XL-UniRef50's encoder
+    (:mod:`.prott5`, widths ``t5``) in the LSTM-LM's place; the ``lm_*``
+    fields are not read."""
+    t5: ProtT5Config = ProtT5Config()
+
+
+def trunk_of(config) -> Optional[Union[ESM2Config, ProtT5Config]]:
+    """The transformer trunk's widths of a GCN config (ESM-2's or
+    ProtT5's), None for an LSTM-LM."""
+    return getattr(config, "esm", None) or getattr(config, "t5", None)
 
 
 @dataclass(frozen=True)
@@ -120,11 +133,14 @@ def _dense_init(in_dim: int, out_dim: int, generator: torch.Generator,
 def init_gcn(config: GCNConfig, generator: torch.Generator, device, *,
              gc_bias: bool = False, lm_embed_bias: bool = False) -> dict:
     """Random GCN parameter tree (same structure and shapes as the JAX
-    ``init_gcn``; different numbers, since the generators differ). With an
-    ESM-2 trunk, ``lm`` is :func:`.esm2.init_esm2`'s tree."""
-    if esm_of(config) is not None:
-        lm_out = config.esm.dim
-        lm = init_esm2(config.esm, generator, device)
+    ``init_gcn``; different numbers, since the generators differ). With a
+    transformer trunk, ``lm`` is :func:`.esm2.init_esm2`'s or
+    :func:`.prott5.init_prott5`'s tree."""
+    trunk = trunk_of(config)
+    if trunk is not None:
+        lm_out = trunk.dim
+        lm = (init_prott5 if isinstance(trunk, ProtT5Config)
+              else init_esm2)(trunk, generator, device)
     else:
         lm_out = config.lm_hidden * (2 if config.lm_bidirectional else 1)
         lm = init_lstm_stack(config.vocab, config.lm_hidden,
@@ -256,16 +272,19 @@ def _lm_forward(lm: object, config: GCNConfig, tokens: torch.Tensor,
                onehot: torch.Tensor, lengths: torch.Tensor,
                dtype: torch.dtype) -> torch.Tensor:
     """The residue LM's (B, L, ·) output: the LSTM-LM stack on the one-hot,
-    or ESM-2 on the tokens (in float32, float64 for float64 compute), whose
-    batch counters ``tokens``, ``slots`` and ``attn_pairs``
-    (:func:`.esm2.trunk_counts`) go to the enclosing span while spans are
-    recorded."""
-    if esm_of(config) is None:
+    or a transformer trunk (ESM-2, ProtT5) on the tokens (in float32,
+    float64 for float64 compute), whose batch counters ``tokens``,
+    ``slots`` and ``attn_pairs`` (the trunk module's ``trunk_counts``) go to
+    the enclosing span while spans are recorded."""
+    trunk = trunk_of(config)
+    if trunk is None:
         return lstm_stack_forward(lm, onehot, lengths, compute_dtype=dtype)
+    t5 = isinstance(trunk, ProtT5Config)
     if recording():
-        count(**trunk_counts(lengths, tokens.shape[1]))
-    return esm2_forward(lm, config.esm, tokens, lengths,
-                        accumulate_dtype(dtype))
+        count(**(prott5 if t5 else esm2).trunk_counts(lengths,
+                                                      tokens.shape[1]))
+    return (prott5_forward if t5 else esm2_forward)(
+        lm, trunk, tokens, lengths, accumulate_dtype(dtype))
 
 
 def _embed(params: dict, config: GCNConfig, tokens: torch.Tensor,

@@ -61,11 +61,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from metagenomic_deepfri_tpu_torch.ops.esm_gemm import (esm_gemm,
-                                                        split_gemm_active)
+from metagenomic_deepfri_tpu_torch.ops.esm_gemm import project
 from metagenomic_deepfri_tpu_torch.ops.one_hot import ALPHABET
-from metagenomic_deepfri_tpu_torch.profiling import (count, device_span,
-                                                     recording)
+from metagenomic_deepfri_tpu_torch.profiling import device_span
 
 # The ESM-1b alphabet of ESM-2, ids 0-32.
 ESM_ALPHABET = ("<cls>", "<pad>", "<eos>", "<unk>", "L", "A", "G", "V",
@@ -132,27 +130,9 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor,
 def _linear(p: dict, x: torch.Tensor, dtype, epilogue: str = "bias",
             residual: torch.Tensor | None = None) -> torch.Tensor:
     """``x·W + b``, then GELU (``epilogue="gelu"``) or ``residual +``
-    (``"residual"``), under the device span ``model/esm/gemm`` with the
-    counters ``rows``, ``k``, ``n`` and ``split``: 1 where the split kernel
-    ran (:func:`..ops.esm_gemm.split_gemm_active`), 0 where
-    ``torch.addmm`` did."""
-    w = p["kernel"]
-    x2 = x.reshape(-1, x.shape[-1])
-    split = split_gemm_active(x2, w)
-    with device_span("model/esm/gemm", x.device):
-        if recording():
-            count(rows=x2.shape[0], k=x2.shape[1], n=w.shape[1],
-                  split=int(split))
-        res = None if residual is None else residual.reshape(-1, w.shape[1])
-        if split:
-            y = esm_gemm(x2, w, p["bias"], epilogue, res)
-        else:
-            y = torch.addmm(p["bias"].to(dtype), x2, w.to(dtype))
-            if epilogue == "gelu":
-                y = F.gelu(y)
-            elif epilogue == "residual":
-                y = res + y
-    return y.view(*x.shape[:-1], -1)
+    (``"residual"``), under the device span ``model/esm/gemm``
+    (:func:`..ops.esm_gemm.project`)."""
+    return project(p, x, dtype, "model/esm/gemm", epilogue, residual)
 
 
 def _norm(p: dict, x: torch.Tensor, eps: float, dtype) -> torch.Tensor:

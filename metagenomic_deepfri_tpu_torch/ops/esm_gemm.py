@@ -1,10 +1,13 @@
-"""Float32-exact GEMM on the tensor cores for ESM-2's projections.
+"""Float32-exact GEMM on the tensor cores for the transformer trunks'
+projections.
 
-``y = epilogue(x·W + b)`` for the trunk's ``qkv``, ``out``, ``fc1`` and
-``fc2`` projections (:mod:`..models.esm2`). The CUDA kernel
-(``csrc/esm_gemm.cu``) replaces no TPU kernel: it exists because PyTorch
-runs a float32 matmul with TF32 off on the CUDA cores, where the trunk's
-GEMMs take ~80 % of an ESM-2 cell's device time.
+``y = epilogue(x·W + b)``, or ``epilogue(x·W)`` without a bias, for
+ESM-2's ``qkv``, ``out``, ``fc1`` and ``fc2`` (:mod:`..models.esm2`) and
+ProtT5's bias-free ``qkv``, ``o``, ``wi`` and ``wo``
+(:mod:`..models.prott5`). The CUDA kernel (``csrc/esm_gemm.cu``) replaces
+no TPU kernel: it exists because PyTorch runs a float32 matmul with TF32
+off on the CUDA cores, where the trunks' GEMMs took ~80 % of an ESM-2
+cell's device time.
 
 Every float32 operand is split exactly into three bfloat16 planes, hi + mid
 + lo (:func:`.graphconv._split_bf16x3`, B1's split), and six of the nine
@@ -16,8 +19,9 @@ kept while it lives (:func:`weight_planes`); x is split inside the kernel.
 :func:`esm_gemm` launches the kernel on CUDA tensors or raises; its plain
 twin is :func:`esm_gemm_ref` (the same planes, the same six products,
 float32 sums). Whether a projection takes the kernel at all is
-:func:`split_gemm_active`'s call, made on what the call can observe. It
-counts its launches in ``esm_gemm.launches``.
+:func:`split_gemm_active`'s call, made on what the call can observe, and
+:func:`project` makes it for a trunk's layer. It counts its launches in
+``esm_gemm.launches``.
 """
 
 from __future__ import annotations
@@ -33,9 +37,12 @@ from metagenomic_deepfri_tpu_torch.ops.contact import _launch, count_launch
 from metagenomic_deepfri_tpu_torch.ops.graphconv import _split_bf16x3
 from metagenomic_deepfri_tpu_torch.precision import \
     highest_f32_precision_active
+from metagenomic_deepfri_tpu_torch.profiling import (count, device_span,
+                                                      recording)
 
-# The kernel's epilogues, as its C entry point numbers them.
-EPILOGUES = {"bias": 0, "gelu": 1, "residual": 2}
+# The kernel's epilogues, as its C entry point numbers them ("bias": nothing
+# after the product and its bias, if any).
+EPILOGUES = {"bias": 0, "gelu": 1, "residual": 2, "relu": 3}
 _PLANE_ALIGN = 8  # the planes' row length, in bf16 elements (16 bytes)
 
 
@@ -85,12 +92,25 @@ def weight_planes(w: torch.Tensor) -> torch.Tensor:
     return planes
 
 
-def esm_gemm_ref(x: torch.Tensor, planes: torch.Tensor, bias: torch.Tensor,
-                 epilogue: str = "bias",
+def _apply(y: torch.Tensor, epilogue: str,
+           residual: torch.Tensor | None) -> torch.Tensor:
+    """The epilogue after the product and its bias, as PyTorch computes
+    it."""
+    if epilogue == "gelu":
+        return F.gelu(y)
+    if epilogue == "relu":
+        return torch.relu(y)
+    if epilogue == "residual":
+        return residual + y
+    return y
+
+
+def esm_gemm_ref(x: torch.Tensor, planes: torch.Tensor,
+                 bias: torch.Tensor | None, epilogue: str = "bias",
                  residual: torch.Tensor | None = None) -> torch.Tensor:
     """Plain twin of :func:`esm_gemm`: x's planes and W's, the six products
     each a float32 matmul, summed in float32 smallest first, then the bias
-    and the epilogue."""
+    (if any) and the epilogue."""
     K = x.shape[-1]
     xs = [v.to(torch.float32) for v in _split_bf16x3(x)]
     ws = [v[:, :K].t().to(torch.float32) for v in planes]
@@ -98,27 +118,27 @@ def esm_gemm_ref(x: torch.Tensor, planes: torch.Tensor, bias: torch.Tensor,
     for i, j in ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)):
         term = xs[i] @ ws[j]
         y = term if y is None else y + term
-    y = y + bias.to(torch.float32)
-    if epilogue == "gelu":
-        return F.gelu(y)
-    if epilogue == "residual":
-        return residual + y
-    return y
+    if bias is not None:
+        y = y + bias.to(torch.float32)
+    return _apply(y, epilogue, residual)
 
 
-def esm_gemm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+def esm_gemm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
              epilogue: str = "bias",
              residual: torch.Tensor | None = None) -> torch.Tensor:
-    """(M, N) float32 ``epilogue(x·w + bias)`` from the planes of ``w``,
-    by the kernel; every tensor on x's CUDA device.
+    """(M, N) float32 ``epilogue(x·w + bias)`` (``epilogue(x·w)`` where
+    ``bias`` is None) from the planes of ``w``, by the kernel; every tensor
+    on x's CUDA device.
 
     Args:
         x: (M, K) float32, K ≥ 1.
         w: (K, N) float32 kernel, stored (in, out) as the port stores
             dense kernels; its planes come from :func:`weight_planes`.
-        bias: (N,) float32.
-        epilogue: "bias", "gelu" (erf GELU after the bias, as
-            ``F.gelu``) or "residual" (``residual + (x·w + bias)``).
+        bias: (N,) float32, or None: the kernel instance without a bias
+            then runs, and no zeros are read.
+        epilogue: "bias" (nothing more), "gelu" (erf GELU after the bias,
+            as ``F.gelu``), "relu" (``torch.relu``) or "residual"
+            (``residual + (x·w + bias)``).
         residual: (M, N) float32, for the "residual" epilogue only.
     """
     if epilogue not in EPILOGUES:
@@ -127,9 +147,11 @@ def esm_gemm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         raise ValueError("a residual goes with the 'residual' epilogue only")
     M, K = x.shape
     N = w.shape[1]
-    if w.shape[0] != K or bias.shape != (N,) or K < 1:
+    if (w.shape[0] != K or K < 1
+            or (bias is not None and bias.shape != (N,))):
         raise ValueError(f"x {tuple(x.shape)}, w {tuple(w.shape)} and bias "
-                         f"{tuple(bias.shape)} do not fit")
+                         f"{None if bias is None else tuple(bias.shape)} do "
+                         "not fit")
     if x.device.type != "cuda":
         raise ValueError(f"no split GEMM kernel for device {x.device}")
     for name, t in (("x", x), ("w", w), ("bias", bias),
@@ -147,14 +169,14 @@ def esm_gemm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     # TMA reads rows of whole 16-byte units from a 16-byte aligned start.
     if K % 4 or not x.is_contiguous() or x.data_ptr() % 16:
         x = F.pad(x, (0, -K % 4)).contiguous()
-    bias = bias.contiguous()
+    bias = None if bias is None else bias.contiguous()
     residual = None if residual is None else residual.contiguous()
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M == 0 or N == 0:
         return y
     lib = _build.load_library()
     code = _launch(x.device, lib.mdf_esm_gemm, x.data_ptr(),
-                   planes.data_ptr(), bias.data_ptr(),
+                   planes.data_ptr(), 0 if bias is None else bias.data_ptr(),
                    0 if residual is None else residual.data_ptr(),
                    y.data_ptr(), M, N, K, x.shape[1], planes.shape[2],
                    EPILOGUES[epilogue])
@@ -164,3 +186,29 @@ def esm_gemm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 
 esm_gemm.launches = 0
+
+
+def project(p: dict, x: torch.Tensor, dtype, span: str,
+            epilogue: str = "bias",
+            residual: torch.Tensor | None = None) -> torch.Tensor:
+    """One projection of a trunk's layer: ``x·W`` (+ ``p["bias"]`` where
+    the layer has one), then the epilogue, under the device span ``span``
+    with the counters ``rows``, ``k``, ``n`` and ``split``: 1 where the
+    split kernel ran (:func:`split_gemm_active`), 0 where ``torch.addmm``
+    (``torch.mm`` without a bias) and PyTorch's epilogue did."""
+    w, b = p["kernel"], p.get("bias")
+    x2 = x.reshape(-1, x.shape[-1])
+    split = split_gemm_active(x2, w)
+    with device_span(span, x.device):
+        if recording():
+            count(rows=x2.shape[0], k=x2.shape[1], n=w.shape[1],
+                  split=int(split))
+        res = None if residual is None else residual.reshape(-1, w.shape[1])
+        if split:
+            y = esm_gemm(x2, w, b, epilogue, res)
+        elif b is None:
+            y = _apply(torch.mm(x2, w.to(dtype)), epilogue, res)
+        else:
+            y = _apply(torch.addmm(b.to(dtype), x2, w.to(dtype)), epilogue,
+                       res)
+    return y.view(*x.shape[:-1], -1)

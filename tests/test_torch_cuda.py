@@ -942,3 +942,122 @@ def test_esm_linear_dispatch_on_card(cuda):
             use_highest_f32_precision()
         assert torch.equal(y.reshape(want.shape), want)
         assert eg.esm_gemm.launches == launches
+
+
+# -- ProtT5's projections on E1, and its encoder at published widths ----------
+
+# (K, N, epilogue) of ProtT5-XL-UniRef50's bias-free projections.
+T5_PROJECTIONS = {"qkv": (1024, 12288, "bias"), "o": (4096, 1024, "residual"),
+                  "wi": (1024, 16384, "relu"), "wo": (16384, 1024, "residual")}
+T5_ROWS = 33024   # 32,768 token slots at bucket 1024: 32 rows of 1,025
+
+
+@pytest.mark.parametrize("proj", list(T5_PROJECTIONS))
+def test_t5_gemm_against_twin_and_float64(cuda, proj):
+    """E1's bias-free instances on ProtT5's four shapes at 33,024 rows, at
+    T5's initialisation scales: against the plain twin (the same planes
+    and six products, float32 sums in another order) within 2⁻²⁰ of |x|·|W|
+    (+ |residual|), where a wrong or missing epilogue or a bias read from
+    nowhere is off by order 1; and against float64, its widest error over
+    that scale at most twice cuBLAS float32's (TF32 off) on the same
+    inputs, as ESM-2's shapes are held."""
+    from metagenomic_deepfri_tpu_torch.ops import esm_gemm as eg
+
+    K, N, epilogue = T5_PROJECTIONS[proj]
+    gen = torch.Generator(device=cuda).manual_seed(K + N)
+    x = torch.randn(T5_ROWS, K, generator=gen, device=cuda)
+    if proj == "wo":
+        x = torch.relu(x)   # wo reads wi's ReLU outputs
+    w = torch.randn(K, N, generator=gen, device=cuda) * K ** -0.5
+    res = (torch.randn(T5_ROWS, N, generator=gen, device=cuda)
+           if epilogue == "residual" else None)
+    use_highest_f32_precision()
+    launches = eg.esm_gemm.launches
+    got = eg.esm_gemm(x, w, None, epilogue, res)
+    assert eg.esm_gemm.launches == launches + 1
+    twin = eg.esm_gemm_ref(x, eg.weight_planes(w), None, epilogue, res)
+    plain = torch.mm(x, w)
+    plain = {"relu": torch.relu(plain), "bias": plain}.get(
+        epilogue, plain if res is None else res + plain)
+    x64, w64 = x.double(), w.double()
+    want = x64 @ w64
+    scale = x64.abs() @ w64.abs()
+    if epilogue == "relu":
+        want = torch.relu(want)
+    if res is not None:
+        want = res.double() + want
+        scale += res.double().abs()
+    gap = float(((got.double() - twin.double()).abs() / scale).max())
+    split = float(((got.double() - want).abs() / scale).max())
+    cublas = float(((plain.double() - want).abs() / scale).max())
+    print(f"t5 gemm {proj} M={T5_ROWS} K={K}: twin {gap:.3g}, split "
+          f"{split:.3g}, cuBLAS {cublas:.3g}, ratio {split / cublas:.3f}")
+    assert torch.isfinite(got).all()
+    assert gap <= 2.0 ** -20
+    assert split <= 2 * cublas
+
+
+def test_prott5_encoder_at_published_widths_on_card(cuda):
+    """ProtT5-XL-UniRef50's encoder (24 layers, d 1024, 32 heads of 128,
+    d_ff 16,384) on one batch as the engine shapes it at bucket 512 (64
+    rows, an empty padding row among them), TF32 off: every projection on
+    E1 (``split`` 1 on all 96 ``model/t5/gemm`` spans, one launch each),
+    and the residue representation against the plain reference
+    (``prott5_reference.py``, float32 on the card) within 5e-4 (values of
+    order 1 after the final RMSNorm: float32 rounding through 24 layers in
+    two orders); the same batch with TF32 on misses it."""
+    from prott5_reference import reference as plain
+    from prott5_reference import trunk as reference_trunk
+
+    from metagenomic_deepfri_tpu_torch import profiling
+    from metagenomic_deepfri_tpu_torch.batching.buckets import \
+        esm_batch_size
+    from metagenomic_deepfri_tpu_torch.models import prott5
+    from metagenomic_deepfri_tpu_torch.ops import esm_gemm as eg
+
+    cfg = prott5.ProtT5Config()
+    tree = prott5.init_prott5(cfg, torch.Generator(device=cuda).manual_seed(7),
+                              cuda)
+    rows = esm_batch_size(512)
+    rng = np.random.default_rng(8)
+    seqs = ["".join(rng.choice(list(AMINO_ACIDS), size=int(n)))
+            for n in rng.integers(257, 513, rows - 1)]
+    tokens = np.zeros((rows, 512), np.uint8)
+    lengths = np.zeros(rows, np.int32)
+    for i, s in enumerate(seqs):
+        tokens[i, :len(s)] = seq2tokens(s)
+        lengths[i] = len(s)
+    tok, lens = (torch.from_numpy(tokens).to(cuda),
+                 torch.from_numpy(lengths).to(cuda))
+    use_highest_f32_precision()
+    with plain.full_precision(), torch.inference_mode():
+        ref = reference_trunk(tree, dataclasses.asdict(cfg), seqs, cuda,
+                              plain.exact)
+
+    def widest():
+        with torch.inference_mode():
+            got = prott5.prott5_forward(tree, cfg, tok, lens)
+        assert torch.isfinite(got).all()
+        return max(float((got[i, :len(s)] - ref[i, :len(s)]).abs().max())
+                   for i, s in enumerate(seqs))
+
+    launches = eg.esm_gemm.launches
+    profiling.reset()
+    profiling.set_recording(True)
+    try:
+        exact = widest()
+        gemm = [s for s in profiling.spans() if s.name == "model/t5/gemm"]
+    finally:
+        profiling.set_recording(None)
+        profiling.reset()
+    assert len(gemm) == 4 * cfg.layers
+    assert all(s.counts["split"] == 1 and s.counts["rows"] == rows * 513
+               for s in gemm)
+    assert eg.esm_gemm.launches == launches + 4 * cfg.layers
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = widest()
+    finally:
+        use_highest_f32_precision()
+    print(f"prott5 encoder on the card: float32 {exact:.3g}, TF32 {tf32:.3g}")
+    assert exact < 5e-4 < tf32

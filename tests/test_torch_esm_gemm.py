@@ -1,8 +1,9 @@
-"""The split GEMM of ESM-2's projections (``ops/esm_gemm.py``) on the CPU:
-its plain twin against float64, the weight planes' split and cache, the
-dispatch that keeps ``torch.addmm`` off the card, the ``model/esm/gemm``
-spans, and the benchmark's reader of them. The kernel itself is held on
-the card by ``tests/test_torch_cuda.py``."""
+"""The split GEMM of ESM-2's and ProtT5's projections (``ops/esm_gemm.py``)
+on the CPU: its plain twin against float64 (with a bias or none, every
+epilogue), the weight planes' split and cache, the dispatch that keeps
+``torch.addmm`` (``torch.mm`` without a bias) off the card, the
+``model/esm/gemm`` spans, and the benchmark's reader of them. The kernel
+itself is held on the card by ``tests/test_torch_cuda.py``."""
 
 import types
 
@@ -37,8 +38,11 @@ def _data(M, K, N, seed, extremes=False):
 
 
 def _relative_error(y, x, w, b, residual=None):
-    """max |y − y₆₄| / (|x|·|w| + |b| (+ |residual|)), all in float64."""
-    x64, w64, b64 = x.double(), w.double(), b.double()
+    """max |y − y₆₄| / (|x|·|w| + |b| (+ |residual|)), all in float64 (b
+    None: no bias)."""
+    x64, w64 = x.double(), w.double()
+    b64 = torch.zeros(w.shape[1], dtype=torch.float64) if b is None \
+        else b.double()
     ref = x64 @ w64 + b64
     scale = x64.abs() @ w64.abs() + b64.abs()
     if residual is not None:
@@ -60,7 +64,7 @@ def test_twin_within_float32_rounding_of_float64(K, N, extremes):
     assert _relative_error(plain, x, w, b) <= 4 * K * u
 
 
-@pytest.mark.parametrize("epilogue", ["gelu", "residual"])
+@pytest.mark.parametrize("epilogue", ["gelu", "residual", "relu"])
 def test_twin_epilogues(epilogue):
     x, w, b = _data(50, 32, 64, seed=3)
     res = torch.randn(50, 64, generator=torch.Generator().manual_seed(4))
@@ -68,8 +72,56 @@ def test_twin_epilogues(epilogue):
     y = eg.esm_gemm_ref(x, planes, b, epilogue,
                         res if epilogue == "residual" else None)
     base = eg.esm_gemm_ref(x, planes, b)
-    want = F.gelu(base) if epilogue == "gelu" else res + base
+    want = {"gelu": F.gelu(base), "relu": torch.relu(base),
+            "residual": res + base}[epilogue]
     assert torch.equal(y, want)
+    assert bool((base < 0).any())
+
+
+# (K, N) of ProtT5's projections at a reduced width (qkv, o, wi, wo), and
+# wo's reduction at its published 16,384.
+T5_SHAPES = [(64, 384), (128, 64), (64, 256), (256, 64), (16384, 40)]
+
+
+@pytest.mark.parametrize("epilogue", ["bias", "relu", "residual"])
+@pytest.mark.parametrize("K,N", T5_SHAPES)
+def test_twin_without_bias_against_float64(K, N, epilogue):
+    """No bias (ProtT5's projections): the twin's product within a few
+    float32 ulps of |x|·|w| (+ |residual|) of float64, as ``torch.mm`` is;
+    ReLU and the residual add after it as PyTorch computes them."""
+    x, w, _ = _data(37, K, N, seed=K + N)
+    res = (torch.randn(37, N, generator=torch.Generator().manual_seed(6))
+           if epilogue == "residual" else None)
+    planes = eg.split_planes(w)
+    y = eg.esm_gemm_ref(x, planes, None, epilogue, res)
+    base = eg.esm_gemm_ref(x, planes, None)
+    u = 2.0 ** -24
+    if epilogue == "relu":
+        assert torch.equal(y, torch.relu(base))
+        y = base
+    assert _relative_error(y, x, w, None, res) <= 4 * K * u
+    plain = torch.mm(x, w) if res is None else res + torch.mm(x, w)
+    assert _relative_error(plain, x, w, None, res) <= 4 * K * u
+
+
+def test_project_on_the_cpu_is_plain_pytorch():
+    """Off the card :func:`project` is ``torch.mm`` (no bias) or
+    ``torch.addmm``, then PyTorch's epilogue, bit for bit, under its span
+    with ``split`` 0 and no launch."""
+    x, w, b = _data(6, 16, 24, seed=8)
+    res = torch.randn(6, 24, generator=torch.Generator().manual_seed(9))
+    launches = eg.esm_gemm.launches
+    for p, plain in (({"kernel": w}, torch.mm(x, w)),
+                     ({"kernel": w, "bias": b}, torch.addmm(b, x, w))):
+        for epilogue, want in (("bias", plain), ("relu", torch.relu(plain)),
+                               ("gelu", F.gelu(plain)),
+                               ("residual", res + plain)):
+            got = eg.project(p, x[None], torch.float32, "test/gemm",
+                             epilogue,
+                             res[None] if epilogue == "residual" else None)
+            assert got.shape == (1, 6, 24)
+            assert torch.equal(got[0], want)
+    assert eg.esm_gemm.launches == launches
 
 
 def test_planes_split_exactly():
@@ -120,7 +172,9 @@ def test_weight_planes_of_an_inference_tensor():
 def test_rejects_what_it_does_not_take():
     x, w, b = _data(4, 8, 8, seed=0)
     with pytest.raises(ValueError):
-        eg.esm_gemm(x, w, b, "relu")
+        eg.esm_gemm(x, w, b, "tanh")
+    with pytest.raises(ValueError):
+        eg.esm_gemm(x, w, b[:4])
     with pytest.raises(ValueError):
         eg.esm_gemm(x, w, b, "residual")
     with pytest.raises(ValueError):
