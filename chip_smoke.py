@@ -155,12 +155,25 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
     ProtT5's, through ``BatchedPredictor.predict_stream`` on 64 proteins
     of bucket 512 (one batch), the launch count zeroed just before each: 4
     E1 launches a layer and a batch (132 and 96), ``split`` 1 on every
-    ``model/esm/gemm`` or ``model/t5/gemm`` span, scores finite and in
-    [0, 1].
+    ``model/esm/gemm`` or ``model/t5/gemm`` span, and one E2 launch a layer
+    and a batch (33 and 24), ``split`` 1 on every ``model/esm/sdpa`` or
+    ``model/t5/sdpa`` span; scores finite and in [0, 1].
+12. The trunks' attention, E2 (``ops/attention.py``): ``attention`` at
+    each bucket's main-path shape of ESM-2 650M (20 heads of 64, no bias)
+    and ProtT5-XL-UniRef50 (32 heads of 128, T5's bias from its tables),
+    256, 128, 64 and 32 rows at buckets 128-1024 (the traffic's lognormal
+    lengths in the bucket, an empty row), q, k and v views of one
+    projection output: normwise over the valid rows, against float64 at
+    most 1.5 times the error of PyTorch's float32 attention (TF32 off) on
+    the same inputs, and within 2⁻²⁰ of its twin (times the logits' scale);
+    a twin with every operand cut to its hi and mid planes must fail both;
+    then logits to ~±90, and rows of 1 and 2 valid tokens. Times E2, its twin and PyTorch's float32
+    attention at bucket 1024 (``library_ms``: the port calls it nowhere).
 
 Last, the kernel summary (launches on the main path, phases 4–11, every
 rank's included; max |Δ|, ms, plain, device, bound and library ms; E1 at
-ESM-2's fc1 and at ProtT5's wo), the
+ESM-2's fc1 and at ProtT5's wo; E2 at each trunk's bucket 1024, its max
+the normwise distance to its twin), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --multi-only`` runs phases 1, 2 and 10 only, with
@@ -205,6 +218,7 @@ try:
     from metagenomic_deepfri_tpu_torch.models.registry import \
         load_model_handle
     from metagenomic_deepfri_tpu_torch.ops import _build
+    from metagenomic_deepfri_tpu_torch.ops import attention as at
     from metagenomic_deepfri_tpu_torch.ops import contact
     from metagenomic_deepfri_tpu_torch.ops import esm_gemm as eg
     from metagenomic_deepfri_tpu_torch.ops import graphconv as gc
@@ -318,6 +332,21 @@ GEMM_TWIN_RMS = 2.0 ** -23
 # (esm_batch_size(512) rows).
 ESM_PROTEINS = 64
 ESM_LENGTHS = (257, 512)
+# E2's shapes: each trunk's heads, head dim, tokens beyond the residues and
+# whether it has a position bias, at each bucket's main-path rows
+# (esm_batch_size: 256, 128, 64, 32).
+ATTN_TRUNKS = {"esm2": (20, 64, 2, False), "prott5": (32, 128, 1, True)}
+ATTN_BUCKETS = (128, 256, 512, 1024)
+# E2 against float64, normwise: at most 1.5 times the error of PyTorch's
+# float32 attention (TF32 off) on the same inputs; against its twin (the
+# same float32 attention, unsplit, in PyTorch's order) within 2^-20 times
+# the logits' scale (float32's rounding of logits of order L moves both by
+# L times as much: at L 25 on an H100 the twin is 1.3e-6 from float64,
+# E2 4.7e-7),
+# where operands cut to their hi and mid planes read 3e-5 at L 1 and 4.7e-5
+# at L 25.
+ATTN_LIB_RATIO = 1.5
+ATTN_TWIN_RMS = 2.0 ** -20
 # Config overrides (empty: the published width) of phase 5's and phase 10's
 # GCNs, for rehearsals on the CPU.
 FT_GCN = {}
@@ -327,6 +356,7 @@ SOURCES = {
     "contact_degrees": "metagenomic_deepfri_tpu_torch/csrc/graphconv.cu",
     "contact_map": "metagenomic_deepfri_tpu_torch/csrc/contact.cu",
     "esm_gemm": "metagenomic_deepfri_tpu_torch/csrc/esm_gemm.cu",
+    "attention": "metagenomic_deepfri_tpu_torch/csrc/attention.cu",
 }
 REPLACES = {
     "contact_degrees": "metagenomic_deepfri_tpu/ops/graphconv_pallas.py:190",
@@ -335,12 +365,14 @@ REPLACES = {
     "contact_map": "metagenomic_deepfri_tpu/ops/contact.py:193",
     "esm_gemm": None,  # the port's own: the JAX package has no ESM-2
     # or ProtT5
+    "attention": None,  # the port's own: the JAX package has no trunk
 }
 SYMBOLS = {
     "contact_degrees": "contact_degrees_kernel",
     "graphconv_aggregate": "graphconv_aggregate_kernel",
     "contact_map": "contact_map_kernel",
     "esm_gemm": "esm_gemm_kernel",
+    "attention": "attention_kernel",
 }
 # A kernel's bound is the larger of its bytes (each input read once, each
 # output written once) over HBM3's rate and its operations over the peak of
@@ -718,9 +750,9 @@ def esm_gemm_times(dev) -> list:
     return rows
 
 
-def trunk_main_path(dev, smi, cfg, span: str) -> int:
+def trunk_main_path(dev, smi, cfg, span: str) -> tuple:
     """Phase 11's main-path run of one trunk (see the module's docstring);
-    returns E1's launches."""
+    returns E1's and E2's launches."""
     trunk = deepfri.trunk_of(cfg)
     name = type(trunk).__name__
     params = deepfri.init_gcn(cfg, torch.Generator(device=dev).manual_seed(
@@ -735,15 +767,19 @@ def trunk_main_path(dev, smi, cfg, span: str) -> int:
         b = assign_bucket(len(seq))
         per_bucket[b] = per_bucket.get(b, 0) + 1
     n_batches = sum(-(-n // esm_batch_size(b)) for b, n in per_bucket.items())
-    eg.esm_gemm.launches = 0
+    eg.esm_gemm.launches = at.attention.launches = 0
+    sdpa_span = span.replace("/gemm", "/sdpa")
     profiling.reset()
     profiling.set_recording(True)
     try:
         out, n, secs = run_stream(engine, items, modes=["mf"])
-        gemm = [s for s in profiling.spans() if s.name == span]
+        got = profiling.spans()
     finally:
         profiling.set_recording(None)
         profiling.reset()
+    gemm = [s for s in got if s.name == span]
+    sdpa = [s for s in got if s.name == sdpa_span]
+    lm = [s for s in got if s.name == "model/lm"]
     launches = eg.esm_gemm.launches
     want = 4 * trunk.layers * n_batches
     split = sum(s.counts["split"] for s in gemm)
@@ -751,19 +787,29 @@ def trunk_main_path(dev, smi, cfg, span: str) -> int:
         f"{sorted(per_bucket)} in {secs:.2f} s (first pass) on {smi}; "
         f"esm_gemm launches {launches}, {span} spans {len(gemm)} "
         f"with split 1 on {split}; expected {want} of each")
+    attn = at.attention.launches
+    attn_want = trunk.layers * n_batches
+    attn_split = sum(s.counts["split"] for s in sdpa)
+    pairs = sum(s.counts["pairs"] for s in sdpa)
+    real = trunk.layers * sum(s.counts["attn_pairs"] for s in lm)
+    log(f"  {name}: attention launches {attn}, {sdpa_span} spans "
+        f"{len(sdpa)} with split 1 on {attn_split}; expected {attn_want} of "
+        f"each; query-key pairs computed {pairs}, real {real}")
     if n != ESM_PROTEINS:
         raise AssertionError(f"{name}: processed {n} of {ESM_PROTEINS}")
     check_scores(out, items, modes=["mf"])
     if not launches == len(gemm) == split == want:
         raise AssertionError(f"{name}: the projections did not all take E1")
+    if not attn == len(sdpa) == attn_split == attn_want:
+        raise AssertionError(f"{name}: the attention did not all take E2")
     del engine, params
     torch.cuda.empty_cache()
-    return launches
+    return launches, attn
 
 
 def phase_esm(dev, smi):
-    """Phase 11: returns E1's max |Δ| to its twin, its timed rows and its
-    launches on the main path."""
+    """Phase 11: returns E1's max |Δ| to its twin, its timed rows, and its
+    and E2's launches on the main path."""
     log("phase 11: the trunks' projections (esm_gemm) at the published "
         "widths: ESM-2 650M's and ProtT5-XL-UniRef50's")
     worst = esm_gemm_checks(dev)
@@ -771,13 +817,185 @@ def phase_esm(dev, smi):
     log(f"esm_gemm times (CUDA events, mean of 10) on {smi}:")
     for r in rows:
         log(f"  {json.dumps(r)}")
-    launches = sum(trunk_main_path(dev, smi, cfg, span) for cfg, span in (
+    counts = [trunk_main_path(dev, smi, cfg, span) for cfg, span in (
         (deepfri.ESMGCNConfig(n_labels=MODES["mf"], esm=esm2.ESM2Config()),
          "model/esm/gemm"),
         (deepfri.ProtT5GCNConfig(n_labels=MODES["mf"],
                                  t5=prott5.ProtT5Config()),
-         "model/t5/gemm")))
-    return worst, rows, launches
+         "model/t5/gemm"))]
+    return worst, rows, sum(c[0] for c in counts), sum(c[1] for c in counts)
+
+
+def attention_case(trunk: str, bucket: int, dev, seed: int = SEED,
+                   logit_scale: float = 1.0, valid=None):
+    """E2's inputs at a trunk's main-path shape: q, k and v views of one
+    (B, T, 3, H, D) projection output (q scaled so that logits are of
+    order ``logit_scale``), each row's valid count (the traffic's lognormal
+    lengths within the bucket and one empty row, or ``valid``), T5's bias
+    tables or None, and the attention mask PyTorch's call took before E2
+    (16-aligned rows; for ProtT5 the (B, H, T, T) bias joined with it)."""
+    H, D, extra, biased = ATTN_TRUNKS[trunk]
+    B, T = esm_batch_size(bucket), bucket + extra
+    gen = torch.Generator(device=dev).manual_seed(seed + bucket)
+    fused = torch.randn(B, T, 3, H, D, generator=gen, device=dev)
+    fused[:, :, 0] *= logit_scale * D ** -0.5
+    q, k, v = fused.permute(2, 0, 3, 1, 4)
+    if valid is None:
+        rng = np.random.default_rng(seed + bucket)
+        n = np.clip(np.exp(rng.normal(np.log(270), 0.55, 40 * B)), 40, 1000)
+        n = n[(n > bucket // 2) & (n <= bucket)].astype(int)[:B - 1]
+        valid = (n + extra).tolist() + [extra] * (B - len(n))
+    valid = torch.tensor(valid, device=dev, dtype=torch.int32)
+    keys = torch.arange(T, device=dev)[None, :] < valid[:, None]
+    bias = None
+    width = -(-T // 16) * 16
+    if biased:
+        rel = torch.randn(prott5.ProtT5Config().buckets, H, generator=gen,
+                          device=dev) * 0.5
+        bias = (rel, prott5.distance_buckets(prott5.ProtT5Config(), T, dev))
+        mask = torch.empty(B, H, T, width, device=dev)[..., :T]
+        torch.add(at._bias_of(bias, T, torch.float32)[None],
+                  torch.zeros(B, 1, 1, T, device=dev).masked_fill(
+                      ~keys[:, None, None, :], float("-inf")), out=mask)
+    else:
+        mask = torch.zeros(B, 1, 1, width, device=dev)[..., :T].masked_fill(
+            ~keys[:, None, None, :], float("-inf"))
+    return q, k, v, valid, bias, mask
+
+
+def library_attention(q, k, v, mask):
+    """The trunks' attention before E2: PyTorch's fused call in float32
+    with the additive mask, (B, T, H·D) (timed and held beside E2 here;
+    the port calls it nowhere)."""
+    B, H, T, D = q.shape
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v.contiguous(), attn_mask=mask, scale=1.0).transpose(
+            1, 2).reshape(B, T, H * D)
+
+
+def attention_without_lo(q, k, v, valid, bias):
+    """The attention with every operand cut to its hi and mid planes (q, k,
+    v and the softmax weights), in float64: what a kernel that dropped its
+    lo planes would compute at best."""
+    def cut(t):
+        hi, mid, _ = gc._split_bf16x3(t.float())
+        return hi.double() + mid.double()
+
+    B, H, T, D = q.shape
+    s = cut(q) @ cut(k).transpose(-1, -2)
+    if bias is not None:
+        s = s + at._bias_of(bias, T, torch.float64)
+    keys = torch.arange(T, device=q.device)[None, :] < valid[:, None]
+    s = s.masked_fill(~keys[:, None, None, :], float("-inf"))
+    p = cut(torch.softmax(s, -1))
+    return (p @ cut(v)).transpose(1, 2).reshape(B, T, H * D)
+
+
+def attention_check(trunk: str, bucket: int, dev, **case) -> dict:
+    """E2 at one shape against float64, its twin and PyTorch's float32
+    attention, and the cut twin against the same bounds (see the module's
+    docstring); the normwise errors over the valid rows."""
+    q, k, v, valid, bias, mask = attention_case(trunk, bucket, dev, **case)
+    T = q.shape[2]
+    twin_rms = ATTN_TWIN_RMS * max(1.0, case.get("logit_scale", 1.0))
+    launches = at.attention.launches
+    got = at.attention(q, k, v, valid, bias)
+    torch.cuda.synchronize()
+    if at.attention.launches != launches + 1:
+        raise AssertionError("attention: not one launch")
+    rows = torch.arange(T, device=dev)[None, :] < valid[:, None]
+    want = at.attention_ref(q.double(), k.double(), v.double(), valid,
+                            bias)[rows]
+    twin = at.attention_ref(q, k, v, valid, bias)[rows].double()
+    lib = library_attention(q, k, v, mask)[rows].double()
+    cut = attention_without_lo(q, k, v, valid, bias)[rows]
+    norm = want.norm()
+    err = {"e2": float((got[rows].double() - want).norm() / norm),
+           "library": float((lib - want).norm() / norm),
+           "twin": float((twin - want).norm() / norm),
+           "cut": float((cut - want).norm() / norm),
+           "e2_to_twin": float((got[rows].double() - twin).norm()
+                               / twin.norm()),
+           "cut_to_twin": float((cut - twin).norm() / twin.norm())}
+    name = f"attention {trunk} bucket {bucket} {case or ''}".strip()
+    log(f"  {name} (B {q.shape[0]}, H {q.shape[1]}, T {T}, D {q.shape[3]}): "
+        f"normwise error {json.dumps(err)}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: not finite")
+    if not err["e2"] <= ATTN_LIB_RATIO * err["library"]:
+        raise AssertionError(f"{name}: over 1.5 times PyTorch's float32 "
+                             "attention's error")
+    if not err["e2_to_twin"] <= twin_rms:
+        raise AssertionError(f"{name}: differs from its twin")
+    if not (err["cut"] > ATTN_LIB_RATIO * err["library"]
+            and err["cut_to_twin"] > twin_rms):
+        raise AssertionError(f"{name}: the bounds would pass a kernel that "
+                             "dropped its lo planes")
+    del want, twin, lib, cut, got
+    torch.cuda.empty_cache()
+    return err
+
+
+def attention_checks(dev) -> float:
+    """Phase 12's accuracy checks; returns E2's widest normwise distance
+    to its twin."""
+    worst = 0.0
+    with highest_f32_precision():
+        for trunk in ATTN_TRUNKS:
+            for bucket in ATTN_BUCKETS:
+                worst = max(worst, attention_check(trunk, bucket, dev)[
+                    "e2_to_twin"])
+            H, D, extra, _ = ATTN_TRUNKS[trunk]
+            # Logits near float32's exp range (|s| to ~90); rows of 1 and 2
+            # valid tokens and a full one, T not a multiple of the tile.
+            worst = max(worst, attention_check(
+                trunk, 128, dev, logit_scale=25.0)["e2_to_twin"])
+            B = esm_batch_size(128)
+            worst = max(worst, attention_check(
+                trunk, 128, dev, seed=SEED + 1,
+                valid=[1, 2, 128 + extra] + [65] * (B - 3))["e2_to_twin"])
+    return worst
+
+
+def attention_times(dev) -> list:
+    """E2, its twin and PyTorch's float32 attention at each trunk's
+    bucket-1024 shape, with the launch's bound: the larger of its float32
+    work on the real pairs (4·H·D a pair) at the tensor cores' bf16 rate
+    and its real tokens' q, k, v and output (16·H·D bytes a token) at
+    HBM3's, as the benchmark's readers count them."""
+    rows = []
+    with highest_f32_precision():
+        for trunk in ATTN_TRUNKS:
+            q, k, v, valid, bias, mask = attention_case(trunk, 1024, dev)
+            B, H, T, D = q.shape
+            n = [int(x) for x in valid.tolist()]
+            t_ops = 4 * H * D * sum(x * x for x in n) / BF16_TENSOR_FLOP_PER_S
+            t_bytes = 16 * H * D * sum(n) / HBM_BYTES_PER_S
+            rows.append(timed_row(
+                "attention", lambda: at.attention(q, k, v, valid, bias),
+                lambda: at.attention_ref(q, k, v, valid, bias),
+                (max(t_ops, t_bytes) * 1e3,
+                 "bytes" if t_bytes >= t_ops else "operations"),
+                trunk=trunk, B=B, H=H, T=T, D=D,
+                pairs_share=at.tile_pairs(n, T) / (B * T * T),
+                library_ms=cuda_ms(
+                    lambda: library_attention(q, k, v, mask))))
+            del q, k, v, mask
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase_attention(dev, smi):
+    """Phase 12: returns E2's widest normwise distance to its twin and its
+    timed rows (its launches on the main path are phase 11's)."""
+    log("phase 12: the trunks' attention (E2) at each bucket's main-path "
+        "shape of ESM-2 650M and ProtT5-XL-UniRef50")
+    worst = attention_checks(dev)
+    rows = attention_times(dev)
+    log(f"attention times (CUDA events, mean of 10) on {smi}:")
+    for r in rows:
+        log(f"  {json.dumps(r)}")
+    return worst, rows
 
 
 def make_handles(dtype: str, dev):
@@ -2603,8 +2821,12 @@ def main(argv=None) -> int:
             for name, n in counts.items():
                 launches[name] += n
 
-    # Phase 11: the trunks' projections on E1, alone and on the main path.
-    errors["esm_gemm"], esm_times, launches["esm_gemm"] = phase_esm(dev, smi)
+    # Phase 11: the trunks' projections on E1, alone and on the main path
+    # (E2's launches there too).
+    (errors["esm_gemm"], esm_times, launches["esm_gemm"],
+     launches["attention"]) = phase_esm(dev, smi)
+    # Phase 12: the trunks' attention on E2.
+    errors["attention"], attn_times = phase_attention(dev, smi)
 
     def headline(name, shape):
         if name == "contact_map":  # the fine-tuning batch: B=8, bucket 512
@@ -2613,12 +2835,14 @@ def main(argv=None) -> int:
         if name == "esm_gemm":  # the (trunk, projection) named
             return next(r for r in esm_times
                         if (r["trunk"], r["proj"]) == shape)
+        if name == "attention":  # the trunk named, at bucket 1024
+            return next(r for r in attn_times if r["trunk"] == shape[0])
         return next(r for r in times if r["kernel"] == name
                     and r["bucket"] == 512 and r["dtype"] == "float32"
                     and r["D"] in (None, 1024))
 
     # E1 twice: ESM-2's fc1 (the widest of its four) and ProtT5's wo (K
-    # 16,384, no bias, the residual add).
+    # 16,384, no bias, the residual add); E2 at each trunk's bucket 1024.
     summary = {"kernels": [
         {"name": name, **({"shape": " ".join(shape)} if shape else {}),
          "route": "cuda", "source": SOURCES[name],
@@ -2630,7 +2854,9 @@ def main(argv=None) -> int:
         for name, shape in (("graphconv_aggregate", None),
                             ("contact_degrees", None), ("contact_map", None),
                             ("esm_gemm", ("esm2", "fc1")),
-                            ("esm_gemm", ("prott5", "wo")))]}
+                            ("esm_gemm", ("prott5", "wo")),
+                            ("attention", ("esm2", "bucket-1024")),
+                            ("attention", ("prott5", "bucket-1024")))]}
     log(json.dumps(summary))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels:
-// graphconv.cu (B1's aggregation) and esm_gemm.cu (ESM-2's projections).
+// graphconv.cu (B1's aggregation), esm_gemm.cu (the trunks' projections)
+// and attention.cu (the trunks' attention).
 
 #pragma once
 
@@ -46,12 +47,27 @@ __device__ __forceinline__ uint64_t desc_k32_sw64(const void* tile, int s) {
          static_cast<uint64_t>(2) << 62;
 }
 
+// wgmma descriptor of a bf16 B operand stored MN-major (read with trans-b)
+// in the 64-byte swizzle: each k a row of 32 n (64 bytes, 16-byte chunk c
+// at c ^ ((k >> 1) & 3)), 8-row groups of k SBO bytes apart, blocks of 32 n
+// LBO bytes apart; start at the slice's first k row, on a 512-byte atom.
+__device__ __forceinline__ uint64_t desc_mn_sw64(const void* start,
+                                                 uint32_t lbo, uint32_t sbo) {
+  const uint32_t addr = smem_addr(start);
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 |
+         static_cast<uint64_t>(2) << 62;
+}
+
 // d (+)= A (registers, m64 x k16) * B (descriptor, k16 x n128), bf16 ->
 // f32, asynchronous; with accumulate == 0 d is overwritten. The register
 // fragments: lane (g = lane / 4, q = lane % 4) of warp w of the warpgroup
 // holds A rows 16w + g and 16w + g + 8, columns 2q, 2q + 1, 2q + 8, 2q + 9
 // (a[2 * half + h]: row h, columns 8 half + 2q, + 1, as a bf16 pair), and
 // d[4c + 2h], d[4c + 2h + 1]: row h, columns 8c + 2q, + 1.
+// kTransB = 1 reads B MN-major (n contiguous) instead: desc_mn_sw64.
+template <int kTransB = 0>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
                                                  const uint32_t (&a)[4],
                                                  uint64_t desc,
@@ -67,7 +83,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
       "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
       "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
       "%62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -83,7 +99,62 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-        "r"(accumulate));
+        "r"(accumulate), "n"(kTransB));
+}
+
+// The same product at n64 (B 64 wide): d[4c + 2h], d[4c + 2h + 1] hold row
+// h, columns 8c + 2q, + 1, for c < 8.
+template <int kTransB = 0>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc,
+                                                int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(accumulate), "n"(kTransB));
+}
+
+// d (+)= A (descriptor, m64 x k16) * B (descriptor, k16 x n64), bf16 ->
+// f32, asynchronous, both operands K-major in shared memory (A's 64 rows
+// laid out as B's n rows: desc_k32_sw64); accumulator layout as above.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t adesc,
+                                                   uint64_t bdesc,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(adesc), "l"(bdesc), "r"(accumulate));
 }
 
 // Keep registers that an asynchronous wgmma reads or writes where they are
@@ -98,6 +169,12 @@ template <int N>
 __device__ __forceinline__ void pin(uint32_t (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma's operand reads, TMA) once it has passed a barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {

@@ -19,9 +19,9 @@ positions:
 - each of the layers, pre-LayerNorm: ``h = LN₁(x)``; ``q = (hW_q + b_q) ·
   d_h^-½``, ``k = hW_k + b_k``, ``v = hW_v + b_v`` in heads of d_h; rotary
   positions 0…T−1 on q and k (``inv_freq = base^(−2i/d_h)``, the
-  frequencies repeated, ``x·cos + rotate_half(x)·sin``); ``x += softmax(qkᵀ
-  + mask)·v · W_o + b_o`` with padded keys masked and the softmax in
-  float32; ``x += GELU_erf(LN₂(x)W_1 + b_1)W_2 + b_2``;
+  frequencies repeated, ``x·cos + rotate_half(x)·sin``); ``x +=
+  softmax(qkᵀ)·v · W_o + b_o`` over each row's L + 2 valid keys, the
+  softmax in float32; ``x += GELU_erf(LN₂(x)W_1 + b_1)W_2 + b_2``;
 - ``LN_after(x)``, and the residue representation ``x[:, 1:B+1]``.
 
 Every row keeps its ``<cls>`` and ``<eos>`` keys, an empty padding row of
@@ -43,13 +43,16 @@ The tree (dense kernels stored (in, out), as everywhere in the port)::
 :func:`..convert.esm2_from_hf_state_dict` builds it from the published
 checkpoint's Hugging Face key layout. Each layer runs under the device
 spans ``model/esm/attn`` (LN₁ through the residual add), ``model/esm/sdpa``
-inside it (softmax(qkᵀ)v alone) and ``model/esm/ffn``; each of its four
-projections under ``model/esm/gemm`` inside those (:func:`_linear`).
+inside it (softmax(qkᵀ)v alone, :func:`..ops.attention.attend`) and
+``model/esm/ffn``; each of its four projections under ``model/esm/gemm``
+inside those (:func:`_linear`).
 
 On a CUDA device in float32 with TF32 off, the projections run on the
 tensor cores from three bf16 planes a float32 operand
 (:mod:`..ops.esm_gemm`), with the bias, GELU and residual add in the
-kernel's epilogue; elsewhere ``torch.addmm`` and PyTorch's GELU and add.
+kernel's epilogue, and the attention on E2 (:mod:`..ops.attention`, the
+same planes, only the 64-token tiles that hold valid tokens); elsewhere
+``torch.addmm``, PyTorch's GELU and add, and E2's plain twin.
 """
 
 from __future__ import annotations
@@ -61,9 +64,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from metagenomic_deepfri_tpu_torch.ops.attention import attend
 from metagenomic_deepfri_tpu_torch.ops.esm_gemm import project
 from metagenomic_deepfri_tpu_torch.ops.one_hot import ALPHABET
-from metagenomic_deepfri_tpu_torch.profiling import device_span
+from metagenomic_deepfri_tpu_torch.profiling import device_span, recording
 
 # The ESM-1b alphabet of ESM-2, ids 0-32.
 ESM_ALPHABET = ("<cls>", "<pad>", "<eos>", "<unk>", "L", "A", "G", "V",
@@ -140,19 +144,9 @@ def _norm(p: dict, x: torch.Tensor, eps: float, dtype) -> torch.Tensor:
                         p["bias"].to(dtype), eps)
 
 
-def _key_mask(valid: torch.Tensor, dtype) -> torch.Tensor:
-    """(B, 1, 1, T) additive mask, −inf at padded keys. Its rows are laid
-    out 16-aligned, so the attention takes it as it is, broadcast over
-    heads and queries, without padding a copy."""
-    B, T = valid.shape
-    mask = torch.zeros((B, 1, 1, -(-T // 16) * 16), dtype=dtype,
-                       device=valid.device)[..., :T]
-    return mask.masked_fill_(~valid[:, None, None, :], float("-inf"))
-
-
-def _layer(p: dict, x: torch.Tensor, config: ESM2Config, mask, cos, sin,
-           dtype) -> torch.Tensor:
-    B, T, d = x.shape
+def _layer(p: dict, x: torch.Tensor, config: ESM2Config,
+           n: torch.Tensor, counts, cos, sin, dtype) -> torch.Tensor:
+    B, T, _ = x.shape
     H, hd = config.heads, config.head_dim
     with device_span("model/esm/attn", x.device):
         h = _norm(p["ln1"], x, config.ln_eps, dtype)
@@ -160,11 +154,8 @@ def _layer(p: dict, x: torch.Tensor, config: ESM2Config, mask, cos, sin,
             2, 0, 3, 1, 4)
         q = _rotate(q * hd ** -0.5, cos, sin)
         k = _rotate(k, cos, sin)
-        with device_span("model/esm/sdpa", x.device):
-            a = F.scaled_dot_product_attention(q, k, v.contiguous(),
-                                               attn_mask=mask, scale=1.0)
-        x = _linear(p["out"], a.transpose(1, 2).reshape(B, T, d), dtype,
-                    "residual", x)
+        a = attend(q, k, v, n, "model/esm/sdpa", counts=counts)
+        x = _linear(p["out"], a, dtype, "residual", x)
     with device_span("model/esm/ffn", x.device):
         h = _norm(p["ln2"], x, config.ln_eps, dtype)
         h = _linear(p["fc1"], h, dtype, "gelu")
@@ -181,15 +172,15 @@ def esm2_forward(params: dict, config: ESM2Config, tokens: torch.Tensor,
     values that no real position depends on."""
     ids = esm_tokens(tokens, lengths)
     B, T = ids.shape
-    valid = (torch.arange(T, device=ids.device)[None, :]
-             < lengths.to(torch.int64)[:, None] + 2)
+    n = lengths.to(torch.int32) + 2
+    valid = torch.arange(T, device=ids.device)[None, :] < n[:, None]
     x = params["embed"].to(dtype)[ids] * TOKEN_DROPOUT_SCALE
     x = x * valid[:, :, None].to(dtype)
-    mask = _key_mask(valid, dtype)
+    counts = n.tolist() if recording() else None
     cos, sin = _rotary(T, config.head_dim, config.rope_base, ids.device,
                        dtype)
     for p in params["layers"]:
-        x = _layer(p, x, config, mask, cos, sin, dtype)
+        x = _layer(p, x, config, n, counts, cos, sin, dtype)
     x = _norm(params["ln_after"], x, config.ln_eps, dtype)
     return x[:, 1:T - 1]
 

@@ -42,29 +42,32 @@ The tree (kernels stored (in, out), as everywhere in the port)::
      "ln_final": {"scale"}}
 
 :func:`..convert.prott5_from_hf_state_dict` builds it from the
-``T5EncoderModel`` key layout. Device spans: ``model/t5/bias`` (the batch's
-bias and key mask, once a batch), and a layer's ``model/t5/attn`` (RMS₁
-through the residual add) with ``model/t5/sdpa`` inside it (the attention
-core alone), and ``model/t5/ffn``; each of the four projections under
-``model/t5/gemm`` inside those. On a CUDA device in float32 with TF32 off
-the projections run on E1 (:mod:`..ops.esm_gemm`, its bias-free instances,
-ReLU and the residual add in its epilogue).
+``T5EncoderModel`` key layout. Device spans: ``model/t5/bias`` (the
+bias's tables, once a batch: :func:`distance_buckets`), and a layer's
+``model/t5/attn`` (RMS₁ through the residual add) with ``model/t5/sdpa``
+inside it (the attention core alone, :func:`..ops.attention.attend`), and
+``model/t5/ffn``; each of the four projections under ``model/t5/gemm``
+inside those. On a CUDA device in float32 with TF32 off the projections
+run on E1 (:mod:`..ops.esm_gemm`, its bias-free instances, ReLU and the
+residual add in its epilogue) and the attention on E2
+(:mod:`..ops.attention`), which makes the bias from R and the bucket of
+each distance in the kernel; elsewhere ``torch.mm`` and E2's plain twin,
+which gathers the (H, T, T) bias from the same two tables.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-import threading
-import weakref
 from dataclasses import dataclass
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from metagenomic_deepfri_tpu_torch.ops.attention import attend
 from metagenomic_deepfri_tpu_torch.ops.esm_gemm import project
 from metagenomic_deepfri_tpu_torch.ops.one_hot import ALPHABET
-from metagenomic_deepfri_tpu_torch.profiling import device_span
+from metagenomic_deepfri_tpu_torch.profiling import device_span, recording
 
 # ProtT5's SentencePiece pieces of ids 0-27 (ids 28-127 are the unused
 # <extra_id_*> sentinels). The residue ids are the tokenizer layout of
@@ -135,51 +138,32 @@ def relative_position_bucket(relative: torch.Tensor, buckets: int = 32,
     return out + torch.where(dist < exact, dist, large)
 
 
-_bias: dict = {}
-_bias_lock = threading.Lock()
+@functools.lru_cache(maxsize=None)
+def _buckets(T: int, buckets: int, max_distance: int,
+             device: torch.device) -> torch.Tensor:
+    rel = torch.arange(1 - T, T)
+    return relative_position_bucket(rel, buckets, max_distance).to(
+        torch.int8).to(device)
 
 
-def position_bias(rel_bias: torch.Tensor, config: ProtT5Config, T: int,
-                  dtype) -> torch.Tensor:
-    """(1, H, T, T) ``R[bucket(j − i), h]`` in ``dtype``, made once for each
-    length and kept while ``rel_bias`` lives unchanged (by its identity and
-    version counter, as :func:`..ops.esm_gemm.weight_planes` keeps planes).
-    The buckets are computed on the host, as the published model computes
-    them on the CPU."""
-    key = id(rel_bias)
-    version = 0 if rel_bias.is_inference() else rel_bias._version
-    with _bias_lock:
-        got = _bias.get(key)
-        if got is None or got[0]() is not rel_bias or got[1] != version:
-            ref = weakref.ref(rel_bias,
-                              lambda _, key=key: _bias.pop(key, None))
-            got = _bias[key] = (ref, version, {})
-        made = got[2].get((T, dtype))
-    if made is not None:
-        return made
-    pos = torch.arange(T)
-    buckets = relative_position_bucket(pos[None, :] - pos[:, None],
-                                       config.buckets, config.max_distance)
-    made = rel_bias.to(dtype)[buckets.to(rel_bias.device)].permute(
-        2, 0, 1)[None].contiguous()
-    with _bias_lock:
-        got[2][(T, dtype)] = made
-    return made
+def distance_buckets(config: ProtT5Config, T: int,
+                     device) -> torch.Tensor:
+    """(2T − 1,) int8 T5 bucket of each key-minus-query distance d from
+    −(T − 1) to T − 1, at d + T − 1: the whole position bias of a length
+    but for R, so ``R[table[j − i + T − 1], h]`` is ``bias[h, i, j]``. The
+    buckets are computed on the host, as the published model computes them
+    on the CPU, and the table is made once for each length and device."""
+    return _buckets(T, config.buckets, config.max_distance,
+                    torch.device(device))
 
 
 def _attn_bias(rel_bias: torch.Tensor, config: ProtT5Config,
-               valid: torch.Tensor, dtype) -> torch.Tensor:
-    """(B, H, T, T) position bias plus the key mask (−inf at padded keys),
-    once a batch, under ``model/t5/bias``. Its rows are laid out 16-aligned,
-    so the attention takes it as it is without padding a copy."""
-    B, T = valid.shape
-    with device_span("model/t5/bias", valid.device):
-        pos = position_bias(rel_bias, config, T, dtype)
-        mask = torch.zeros((B, 1, 1, T), dtype=dtype, device=valid.device)
-        mask.masked_fill_(~valid[:, None, None, :], float("-inf"))
-        out = torch.empty((B, config.heads, T, -(-T // 16) * 16),
-                          dtype=dtype, device=valid.device)[..., :T]
-        return torch.add(pos, mask, out=out)
+               T: int) -> tuple:
+    """The attention's bias as ``(R, buckets)`` (:func:`..ops.attention.
+    attention`), once a batch, under ``model/t5/bias``: no (B, H, T, T)
+    tensor is made."""
+    with device_span("model/t5/bias", rel_bias.device):
+        return rel_bias, distance_buckets(config, T, rel_bias.device)
 
 
 def _rms(p: dict, x: torch.Tensor, eps: float, dtype) -> torch.Tensor:
@@ -188,25 +172,22 @@ def _rms(p: dict, x: torch.Tensor, eps: float, dtype) -> torch.Tensor:
     return x * torch.rsqrt(var + eps) * p["scale"].to(dtype)
 
 
-def _attend(q, k, v, bias) -> torch.Tensor:
-    """softmax(q·kᵀ + bias)·v with no scale (T5's), under
-    ``model/t5/sdpa``."""
-    with device_span("model/t5/sdpa", q.device):
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
-                                              scale=1.0)
+def _attend(q, k, v, n, bias, counts) -> torch.Tensor:
+    """softmax(q·kᵀ + bias)·v over the n valid keys of each row, with no
+    scale (T5's), under ``model/t5/sdpa``; (B, T, H·d_kv)."""
+    return attend(q, k, v, n, "model/t5/sdpa", bias, counts)
 
 
-def _layer(p: dict, x: torch.Tensor, config: ProtT5Config, bias,
-           dtype) -> torch.Tensor:
+def _layer(p: dict, x: torch.Tensor, config: ProtT5Config, n, bias,
+           counts, dtype) -> torch.Tensor:
     B, T, _ = x.shape
     H, dk = config.heads, config.d_kv
     with device_span("model/t5/attn", x.device):
         h = _rms(p["ln1"], x, config.eps, dtype)
         q, k, v = project(p["qkv"], h, dtype, GEMM_SPAN).view(
             B, T, 3, H, dk).permute(2, 0, 3, 1, 4)
-        a = _attend(q, k, v, bias)
-        x = project(p["o"], a.transpose(1, 2).reshape(B, T, H * dk), dtype,
-                    GEMM_SPAN, "residual", x)
+        a = _attend(q, k, v, n, bias, counts)
+        x = project(p["o"], a, dtype, GEMM_SPAN, "residual", x)
     with device_span("model/t5/ffn", x.device):
         h = _rms(p["ln2"], x, config.eps, dtype)
         h = project(p["wi"], h, dtype, GEMM_SPAN, "relu")
@@ -222,13 +203,13 @@ def prott5_forward(params: dict, config: ProtT5Config, tokens: torch.Tensor,
     reference precision). Positions past a protein's length hold finite
     values that no real position depends on."""
     ids = prott5_tokens(tokens, lengths)
-    B, T = ids.shape
-    valid = (torch.arange(T, device=ids.device)[None, :]
-             <= lengths.to(torch.int64)[:, None])
+    T = ids.shape[1]
+    n = lengths.to(torch.int32) + 1
     x = params["embed"].to(dtype)[ids]
-    bias = _attn_bias(params["rel_bias"], config, valid, dtype)
+    bias = _attn_bias(params["rel_bias"], config, T)
+    counts = n.tolist() if recording() else None
     for p in params["layers"]:
-        x = _layer(p, x, config, bias, dtype)
+        x = _layer(p, x, config, n, bias, counts, dtype)
     x = _rms(params["ln_final"], x, config.eps, dtype)
     return x[:, :T - 1]
 

@@ -128,6 +128,10 @@ def _load_library() -> ctypes.CDLL:
     lib.mdf_contact_map.restype = i
     lib.mdf_esm_gemm.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.mdf_esm_gemm.restype = i
+    lib.mdf_attention.argtypes = [p, p, p, p, p, p, p,
+                                  ctypes.POINTER(ctypes.c_longlong), i, i, i,
+                                  i, p]
+    lib.mdf_attention.restype = i
     lib.mdf_error_string.argtypes = [i]
     lib.mdf_error_string.restype = ctypes.c_char_p
     return lib

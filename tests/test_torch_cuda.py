@@ -775,11 +775,12 @@ def test_esm2_trunk_at_published_widths_on_card(cuda):
     """ESM-2 650M's trunk (33 layers, d 1280, 20 heads, FFN 5120) on a few
     proteins in one padded batch, with an empty padding row, against the
     plain reference (``esm2_reference.py``, float64 on the card), with
-    TF32 off. The tolerance, 5e-4 on the residue representation (values of
-    order 1 after the final LayerNorm), holds float32 rounding through 33
-    layers of width 1280 and 5120 with room (5.4e-6 on the H100); the same
-    batch with TF32 on (10 mantissa bits for every matmul operand; 3.5e-3)
-    misses it."""
+    TF32 off, every layer's attention on E2 (``split`` 1 on all 33
+    ``model/esm/sdpa`` spans, one launch each). The tolerance, 5e-4 on the
+    residue representation (values of order 1 after the final LayerNorm),
+    holds float32 rounding through 33 layers of width 1280 and 5120 with
+    room (5.4e-6 on the H100); the same batch with TF32 on (10 mantissa
+    bits for every matmul operand; 3.5e-3) misses it."""
     from esm2_reference import residues
     from metagenomic_deepfri_tpu_torch.models.esm2 import (ESM2Config,
                                                            esm2_forward,
@@ -806,8 +807,22 @@ def test_esm2_trunk_at_published_widths_on_card(cuda):
         return max(float((got[i, :len(s)].double() - r).abs().max())
                    for i, (s, r) in enumerate(zip(seqs, ref)))
 
+    from metagenomic_deepfri_tpu_torch import profiling
+    from metagenomic_deepfri_tpu_torch.ops import attention as at
+
     use_highest_f32_precision()
-    exact = widest()
+    launches = at.attention.launches
+    profiling.reset()
+    profiling.set_recording(True)
+    try:
+        exact = widest()
+        sdpa = [s for s in profiling.spans() if s.name == "model/esm/sdpa"]
+    finally:
+        profiling.set_recording(None)
+        profiling.reset()
+    assert len(sdpa) == cfg.layers
+    assert all(s.counts["split"] == 1 for s in sdpa)
+    assert at.attention.launches == launches + cfg.layers
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         tf32 = widest()
@@ -1002,7 +1017,8 @@ def test_prott5_encoder_at_published_widths_on_card(cuda):
     d_ff 16,384) on one batch as the engine shapes it at bucket 512 (64
     rows, an empty padding row among them), TF32 off: every projection on
     E1 (``split`` 1 on all 96 ``model/t5/gemm`` spans, one launch each),
-    and the residue representation against the plain reference
+    every attention on E2 (``split`` 1 on all 24 ``model/t5/sdpa`` spans,
+    one launch each), and the residue representation against the plain reference
     (``prott5_reference.py``, float32 on the card) within 5e-4 (values of
     order 1 after the final RMSNorm: float32 rounding through 24 layers in
     two orders); the same batch with TF32 on misses it."""
@@ -1013,6 +1029,7 @@ def test_prott5_encoder_at_published_widths_on_card(cuda):
     from metagenomic_deepfri_tpu_torch.batching.buckets import \
         esm_batch_size
     from metagenomic_deepfri_tpu_torch.models import prott5
+    from metagenomic_deepfri_tpu_torch.ops import attention as at
     from metagenomic_deepfri_tpu_torch.ops import esm_gemm as eg
 
     cfg = prott5.ProtT5Config()
@@ -1042,11 +1059,13 @@ def test_prott5_encoder_at_published_widths_on_card(cuda):
                    for i, s in enumerate(seqs))
 
     launches = eg.esm_gemm.launches
+    attn = at.attention.launches
     profiling.reset()
     profiling.set_recording(True)
     try:
         exact = widest()
         gemm = [s for s in profiling.spans() if s.name == "model/t5/gemm"]
+        sdpa = [s for s in profiling.spans() if s.name == "model/t5/sdpa"]
     finally:
         profiling.set_recording(None)
         profiling.reset()
@@ -1054,6 +1073,9 @@ def test_prott5_encoder_at_published_widths_on_card(cuda):
     assert all(s.counts["split"] == 1 and s.counts["rows"] == rows * 513
                for s in gemm)
     assert eg.esm_gemm.launches == launches + 4 * cfg.layers
+    assert len(sdpa) == cfg.layers
+    assert all(s.counts["split"] == 1 for s in sdpa)
+    assert at.attention.launches == attn + cfg.layers
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         tf32 = widest()
@@ -1061,3 +1083,93 @@ def test_prott5_encoder_at_published_widths_on_card(cuda):
         use_highest_f32_precision()
     print(f"prott5 encoder on the card: float32 {exact:.3g}, TF32 {tf32:.3g}")
     assert exact < 5e-4 < tf32
+
+
+# -- E2: the trunks' attention (csrc/attention.cu) ----------------------------
+
+ATTN_BUCKETS = (128, 256, 512, 1024)
+
+
+@pytest.mark.parametrize("bucket", ATTN_BUCKETS)
+@pytest.mark.parametrize("trunk", ["esm2", "prott5"])
+def test_attention_against_float64_and_twin(cuda, trunk, bucket):
+    """E2 at a bucket's main-path shape of each trunk (256, 128, 64, 32
+    rows of ESM-2's 20 heads of 64 or ProtT5's 32 heads of 128 with T5's
+    bias; the traffic's lengths in the bucket and an empty row; q, k and v
+    views of one projection output), normwise over the valid rows: against
+    float64 at most 1.5 times the error of PyTorch's float32 attention
+    (TF32 off) on the same inputs, and within 2⁻²⁰ of its twin, where every
+    operand cut to its hi and mid planes fails both; one launch
+    (``chip_smoke.attention_check``, phase 12)."""
+    import chip_smoke
+
+    use_highest_f32_precision()
+    err = chip_smoke.attention_check(trunk, bucket, cuda)
+    print(f"attention {trunk} bucket {bucket}: {err}")
+
+
+@pytest.mark.parametrize("trunk", ["esm2", "prott5"])
+def test_attention_extremes(cuda, trunk):
+    """Logits to ~±90 (near float32's exp range), and rows of 1, 2 and all
+    valid tokens beside ones of 65 (T 130 or 129, not a multiple of the
+    64-token tile), held as at the main-path shapes; padded query rows
+    finite, those of a 64-query tile past the valid count zero."""
+    import chip_smoke
+    from metagenomic_deepfri_tpu_torch.batching.buckets import \
+        esm_batch_size
+    from metagenomic_deepfri_tpu_torch.ops import attention as at
+
+    use_highest_f32_precision()
+    chip_smoke.attention_check(trunk, 128, cuda, logit_scale=25.0)
+    extra = chip_smoke.ATTN_TRUNKS[trunk][2]
+    valid = [1, 2, 128 + extra] + [65] * (esm_batch_size(128) - 3)
+    chip_smoke.attention_check(trunk, 128, cuda, seed=1, valid=valid)
+    q, k, v, n, bias, _ = chip_smoke.attention_case(trunk, 128, cuda,
+                                                    valid=valid)
+    got = at.attention(q, k, v, n, bias)
+    assert torch.isfinite(got).all()
+    assert not got[0, 64:].any() and not got[1, 64:].any()
+    assert got[3, 65:128].abs().sum() > 0   # the second tile, computed
+
+
+def test_attention_dispatch_on_card(cuda):
+    """With TF32 off every layer's attention takes E2 (``split`` 1 and the
+    tile-rounded ``pairs`` on every ``model/esm/sdpa`` span, one launch
+    each), and the trunk agrees with its float64 run; with TF32 on, and in
+    float64, the twin runs and nothing launches."""
+    from metagenomic_deepfri_tpu_torch import profiling
+    from metagenomic_deepfri_tpu_torch.models import esm2
+    from metagenomic_deepfri_tpu_torch.ops import attention as at
+
+    cfg = esm2.ESM2Config(layers=3, dim=128, heads=2, ffn=512)
+    tree = esm2.init_esm2(cfg, torch.Generator(device=cuda).manual_seed(5),
+                          cuda)
+    tokens = torch.randint(0, 20, (4, 150), device=cuda)
+    lengths = torch.tensor([150, 70, 7, 0], device=cuda)
+    use_highest_f32_precision()
+    launches = at.attention.launches
+    profiling.reset()
+    profiling.set_recording(True)
+    try:
+        with torch.inference_mode():
+            got = esm2.esm2_forward(tree, cfg, tokens, lengths)
+        sdpa = [s for s in profiling.spans() if s.name == "model/esm/sdpa"]
+    finally:
+        profiling.set_recording(None)
+        profiling.reset()
+    pairs = at.tile_pairs([152, 72, 9, 2], 152)
+    assert len(sdpa) == cfg.layers
+    assert all(s.counts == {"split": 1, "pairs": pairs} for s in sdpa)
+    assert at.attention.launches == launches + cfg.layers
+    with torch.inference_mode():
+        want = esm2.esm2_forward(tree, cfg, tokens, lengths, torch.float64)
+    assert at.attention.launches == launches + cfg.layers
+    for i, n in enumerate(lengths.tolist()[:3]):
+        assert (got[i, :n].double() - want[i, :n]).abs().max() < 1e-4
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.inference_mode():
+            esm2.esm2_forward(tree, cfg, tokens, lengths)
+    finally:
+        use_highest_f32_precision()
+    assert at.attention.launches == launches + cfg.layers

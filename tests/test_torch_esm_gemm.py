@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from metagenomic_deepfri_tpu_torch import profiling
 from metagenomic_deepfri_tpu_torch.models import esm2
 from metagenomic_deepfri_tpu_torch.ops import esm_gemm as eg
+from metagenomic_deepfri_tpu_torch.ops.attention import attention_ref
 from metagenomic_deepfri_tpu_torch.precision import (highest_f32_precision,
                                                      use_highest_f32_precision)
 from portbench.readers import esm2_gemm_roofline
@@ -218,7 +219,8 @@ def test_dispatch_reads_device_dtype_precision_and_grad():
 
 def _trunk_as_before(params, config, tokens, lengths, dtype):
     """The trunk as it was written with ``torch.addmm``, ``F.gelu`` and
-    the residual adds outside the projections."""
+    the residual adds outside the projections (the attention is E2's
+    twin, as the port runs it off the card)."""
     def linear(p, x):
         return torch.addmm(p["bias"].to(dtype), x.reshape(-1, x.shape[-1]),
                            p["kernel"].to(dtype)).view(*x.shape[:-1], -1)
@@ -226,10 +228,10 @@ def _trunk_as_before(params, config, tokens, lengths, dtype):
     ids = esm2.esm_tokens(tokens, lengths)
     B, T = ids.shape
     H, hd = config.heads, config.head_dim
-    valid = (torch.arange(T)[None, :] < lengths.to(torch.int64)[:, None] + 2)
+    n = lengths.to(torch.int64) + 2
+    valid = torch.arange(T)[None, :] < n[:, None]
     x = params["embed"].to(dtype)[ids] * esm2.TOKEN_DROPOUT_SCALE
     x = x * valid[:, :, None].to(dtype)
-    mask = esm2._key_mask(valid, dtype)
     cos, sin = esm2._rotary(T, hd, config.rope_base, ids.device, dtype)
     for p in params["layers"]:
         h = esm2._norm(p["ln1"], x, config.ln_eps, dtype)
@@ -237,9 +239,8 @@ def _trunk_as_before(params, config, tokens, lengths, dtype):
             2, 0, 3, 1, 4)
         q = esm2._rotate(q * hd ** -0.5, cos, sin)
         k = esm2._rotate(k, cos, sin)
-        a = F.scaled_dot_product_attention(q, k, v.contiguous(),
-                                           attn_mask=mask, scale=1.0)
-        x = x + linear(p["out"], a.transpose(1, 2).reshape(B, T, -1))
+        a = attention_ref(q, k, v, n)
+        x = x + linear(p["out"], a)
         h = esm2._norm(p["ln2"], x, config.ln_eps, dtype)
         x = x + linear(p["fc2"], F.gelu(linear(p["fc1"], h)))
     x = esm2._norm(params["ln_after"], x, config.ln_eps, dtype)

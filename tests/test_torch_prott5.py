@@ -13,8 +13,9 @@ and padding, spans and counters, checkpoints and the registry, and the
 token-slot batch rule of both transformer trunks.
 
 Tolerances: the port and the reference both compute in float32, in other
-orders (SDPA's fused softmax against an explicit one, E1's twin absent on
-the CPU, so ``torch.mm`` against ``torch.matmul``), so residue
+orders (E2's twin, with its own bias gather, against the reference's
+softmax; E1's twin absent on the CPU, so ``torch.mm`` against
+``torch.matmul``), so residue
 representations (of order 1 after the final RMSNorm) agree to float32
 rounding through two layers: a few 1e-6, asserted within 2e-5; scores
 (probabilities) within 1e-5 (asserted 2e-5), the tails' float32 sums over
@@ -44,6 +45,7 @@ from metagenomic_deepfri_tpu_torch.models.convert import (
 from metagenomic_deepfri_tpu_torch.models.registry import (load_checkpoint,
                                                            load_models,
                                                            save_checkpoint)
+from metagenomic_deepfri_tpu_torch.ops.attention import _bias_of, attend
 from metagenomic_deepfri_tpu_torch.ops.one_hot import ALPHABET, batch_tokens
 from metagenomic_deepfri_tpu_torch.synthetic import (AMINO_ACIDS,
                                                      aligned_items)
@@ -203,19 +205,23 @@ def test_bucket_anchors(distance, row):
 
 
 def test_position_bias_kept_per_length_and_remade_when_changed():
+    """The bias's bucket table is made once for each length and device;
+    the bias it gives with R is today's (H, T, T) gather, and reads R as it
+    is at each call, so a changed R shows at once."""
     lm = _trees()["mf"]["lm"]
-    first = prott5.position_bias(lm["rel_bias"], TINY, 40, torch.float32)
-    assert prott5.position_bias(lm["rel_bias"], TINY, 40,
-                                torch.float32) is first
-    assert first.shape == (1, TINY.heads, 40, 40)
+    first = prott5.distance_buckets(TINY, 40, "cpu")
+    assert prott5.distance_buckets(TINY, 40, "cpu") is first
+    assert prott5.distance_buckets(TINY, 41, "cpu") is not first
+    assert first.dtype == torch.int8 and first.shape == (79,)
     pos = torch.arange(40)
     rows = prott5.relative_position_bucket(pos[None, :] - pos[:, None])
-    assert torch.equal(first[0], lm["rel_bias"][rows].permute(2, 0, 1))
+    bias = _bias_of((lm["rel_bias"], first), 40, torch.float32)
+    assert torch.equal(bias, lm["rel_bias"][rows].permute(2, 0, 1))
     rel = lm["rel_bias"].clone()
-    before = prott5.position_bias(rel, TINY, 40, torch.float32)
+    before = _bias_of((rel, first), 40, torch.float32)
     rel.mul_(2.0)
-    after = prott5.position_bias(rel, TINY, 40, torch.float32)
-    assert after is not before and torch.equal(after, 2.0 * before)
+    after = _bias_of((rel, first), 40, torch.float32)
+    assert torch.equal(after, 2.0 * before)
 
 
 # -- (c) the port's trunk and predict_stream ----------------------------------
@@ -282,21 +288,22 @@ def test_rows_do_not_depend_on_batch_mates_or_padding():
 
 # -- (e) mutations miss the reference -----------------------------------------
 
-def _unscaled_attend(q, k, v, bias):
-    return F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
-                                          scale=q.shape[-1] ** -0.5)
+def _unscaled_attend(q, k, v, n, bias, counts):
+    return attend(q * q.shape[-1] ** -0.5, k, v, n, "model/t5/sdpa", bias,
+                  counts)
 
 
 def _layer_norm(p, x, eps, dtype):
     return F.layer_norm(x, x.shape[-1:], p["scale"].to(dtype), None, eps)
 
 
-def _no_position_bias(rel_bias, config, T, dtype):
-    return torch.zeros((1, config.heads, T, T), dtype=dtype)
+def _no_position_bias(rel_bias, config, T):
+    return (torch.zeros_like(rel_bias),
+            prott5.distance_buckets(config, T, rel_bias.device))
 
 
 @pytest.mark.parametrize("name,mutant", [
-    ("position_bias", _no_position_bias), ("_attend", _unscaled_attend),
+    ("_attn_bias", _no_position_bias), ("_attend", _unscaled_attend),
     ("_rms", _layer_norm)], ids=["no_bias", "scaled", "layernorm"])
 def test_mutations_miss_the_reference(monkeypatch, name, mutant):
     lm = _trees()["mf"]["lm"]
