@@ -143,21 +143,27 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
     with its bias and epilogue (GELU; the residual add), and on ``qkv``,
     ``o``, ``wi`` and ``wo`` of ProtT5-XL-UniRef50 (d 1024, inner 4096,
     d_ff 16,384) at M 33,024, none with a bias (``bias=None``; nothing
-    after the product, the residual add, ReLU; K up to 16,384), against
-    ``esm_gemm_ref`` (relative to |x|·|W| + |b| (+ |residual|): each
-    element within 2⁻²¹ at ESM-2's shapes and 2⁻²⁰ at ProtT5's, and
-    normwise within 2⁻²³) and float64 (at most twice the error of cuBLAS's
-    ``torch.addmm`` or ``torch.mm`` in float32 with TF32 off on the same
-    inputs); at each shape a twin without its lo planes must fail both;
-    x and W from 2⁻¹⁰³ to float32's largest against the identity, bit for
-    bit. Times each shape at M 33,280 and 33,024 (TFLOP/s beside
-    cuBLAS's). Then the mf GCN on each published trunk, ESM-2's and
-    ProtT5's, through ``BatchedPredictor.predict_stream`` on 64 proteins
-    of bucket 512 (one batch), the launch count zeroed just before each: 4
-    E1 launches a layer and a batch (132 and 96), ``split`` 1 on every
-    ``model/esm/gemm`` or ``model/t5/gemm`` span, and one E2 launch a layer
-    and a batch (33 and 24), ``split`` 1 on every ``model/esm/sdpa`` or
-    ``model/t5/sdpa`` span; scores finite and in [0, 1].
+    after the product, the residual add, ReLU; K up to 16,384), and on
+    ``qkv``, ``out``, ``fc1`` and ``fc2`` of ESM C 600M (d 1152, SwiGLU
+    3,072: ``fc1`` computes 6,144 columns and writes ``silu(a) ⊙ b``,
+    3,072) at M 33,280, none with a bias, against ``esm_gemm_ref``
+    (relative to |x|·|W| + |b| (+ |residual|), for SwiGLU to
+    |silu'(a)|·|b|·(|x|·|W_a|) + |silu(a)|·(|x|·|W_b|): each element within
+    2⁻²¹ at ESM-2's shapes and 2⁻²⁰ at ProtT5's and ESM C's, and normwise
+    within 2⁻²³) and float64 (each element at most twice the error of
+    cuBLAS's ``torch.addmm`` or ``torch.mm`` in float32 with TF32 off on the
+    same inputs, with the same epilogue, and normwise at most 1.5 times);
+    at each shape a twin without its lo planes must fail both; x and W
+    from 2⁻¹⁰³ to float32's largest against the identity, bit for bit.
+    Times each shape at M 33,280 and 33,024 (TFLOP/s beside cuBLAS's).
+    Then the mf GCN on each published trunk, ESM-2's, ProtT5's and ESM C's,
+    through ``BatchedPredictor.predict_stream`` on 64 proteins of bucket
+    512 (one batch), the launch count zeroed just before each: 4 E1
+    launches a layer and a batch (132, 96 and 144), ``split`` 1 on every
+    ``model/esm/gemm``, ``model/t5/gemm`` or ``model/esmc/gemm`` span, and
+    one E2 launch a layer and a batch (33, 24 and 36), ``split`` 1 on every
+    ``model/esm/sdpa``, ``model/t5/sdpa`` or ``model/esmc/sdpa`` span;
+    scores finite and in [0, 1].
 12. The trunks' attention, E2 (``ops/attention.py``): ``attention`` at
     each bucket's main-path shape of ESM-2 650M (20 heads of 64, no bias)
     and ProtT5-XL-UniRef50 (32 heads of 128, T5's bias from its tables),
@@ -172,7 +178,7 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
 
 Last, the kernel summary (launches on the main path, phases 4–11, every
 rank's included; max |Δ|, ms, plain, device, bound and library ms; E1 at
-ESM-2's fc1 and at ProtT5's wo; E2 at each trunk's bucket 1024, its max
+ESM-2's fc1, at ProtT5's wo and at ESM C's gated fc1; E2 at each trunk's bucket 1024, its max
 the normwise distance to its twin), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 
@@ -210,7 +216,8 @@ try:
         BatchedPredictor, ModelHandle, _pad_batch, _pad_batch_coords)
     from metagenomic_deepfri_tpu_torch.batching.spmm_table import \
         resolve_spmm
-    from metagenomic_deepfri_tpu_torch.models import deepfri, esm2, prott5
+    from metagenomic_deepfri_tpu_torch.models import (deepfri, esm2, esmc,
+                                                      prott5)
     from metagenomic_deepfri_tpu_torch.models.convert import (
         gcn_params_from_numpy, gcn_params_to_numpy)
     from metagenomic_deepfri_tpu_torch.models.lstm import lstm_stack_forward
@@ -317,17 +324,29 @@ T5_PROJECTIONS = {"qkv": (1024, 12288, "bias"),
                   "wi": (1024, 16384, "relu"),
                   "wo": (16384, 1024, "residual")}
 T5_ROWS = (33024,)
+# ESM C 600M's projections, (K, N, epilogue) of qkv, out, fc1 (N the 2F
+# columns the product computes; SwiGLU writes F) and fc2, none with a
+# bias; a batch's token slots (256 rows of 130 at bucket 128).
+ESMC_PROJECTIONS = {"qkv": (1152, 3456, "bias"),
+                    "out": (1152, 1152, "residual"),
+                    "fc1": (1152, 6144, "swiglu"),
+                    "fc2": (3072, 1152, "residual")}
+ESMC_ROWS = (33280,)
 # E1 against its twin, relative to |x|·|W| + |b| (+ |residual|): both round
 # in float32. Each element: within 2^-21 at ESM-2's shapes (a dropped lo
 # plane reads 1.6e-6 to 3.5e-6), 2^-20 at ProtT5's (the twin's float32 sums
 # run to K 16,384, where a dropped lo plane reads ~1e-6 and no elementwise
-# bound tells the two apart). Normwise (the difference's RMS over the
+# bound tells the two apart), 2^-20 at ESM C's (the gated fc1's silu and
+# product round once more). Normwise (the difference's RMS over the
 # scale's): within 2^-23 at every shape, where a twin without its lo planes
 # reads 2e-7 (K 16,384) to 8e-7 (K 1,024) on the CPU; phase 11 checks on
-# the card that such a twin exceeds it at each shape.
+# the card that such a twin exceeds it at each shape. Against float64,
+# normwise: at most 1.5 times cuBLAS float32's error.
 ESM_TWIN_RTOL = 2.0 ** -21
 T5_TWIN_RTOL = 2.0 ** -20
+ESMC_TWIN_RTOL = 2.0 ** -20
 GEMM_TWIN_RMS = 2.0 ** -23
+GEMM_LIB_RATIO = 1.5
 # The main-path batch of each trunk: one batch at bucket 512
 # (esm_batch_size(512) rows).
 ESM_PROTEINS = 64
@@ -363,8 +382,8 @@ REPLACES = {
     "graphconv_aggregate":
         "metagenomic_deepfri_tpu/ops/graphconv_pallas.py:275",
     "contact_map": "metagenomic_deepfri_tpu/ops/contact.py:193",
-    "esm_gemm": None,  # the port's own: the JAX package has no ESM-2
-    # or ProtT5
+    "esm_gemm": None,  # the port's own: the JAX package has no ESM-2,
+    # ProtT5 or ESM C
     "attention": None,  # the port's own: the JAX package has no trunk
 }
 SYMBOLS = {
@@ -583,9 +602,10 @@ def phase_kernels(dev):
 
 def gemm_sets():
     """Phase 11's shapes: (trunk, projections, rows, with a bias, the
-    elementwise tolerance to the twin) of ESM-2 and of ProtT5."""
+    elementwise tolerance to the twin) of ESM-2, ProtT5 and ESM C."""
     return (("esm2", ESM_PROJECTIONS, ESM_ROWS, True, ESM_TWIN_RTOL),
-            ("prott5", T5_PROJECTIONS, T5_ROWS, False, T5_TWIN_RTOL))
+            ("prott5", T5_PROJECTIONS, T5_ROWS, False, T5_TWIN_RTOL),
+            ("esmc", ESMC_PROJECTIONS, ESMC_ROWS, False, ESMC_TWIN_RTOL))
 
 
 def gemm_operands(shape, M: int, bias: bool, dev):
@@ -613,7 +633,22 @@ def esm_epilogue(y, epilogue: str, residual):
         return torch.nn.functional.gelu(y)
     if epilogue == "relu":
         return torch.relu(y)
+    if epilogue == "swiglu":
+        a, b = y.chunk(2, dim=-1)
+        return torch.nn.functional.silu(a) * b
     return y if residual is None else residual + y
+
+
+def swiglu_scale(y, scale):
+    """SwiGLU of the float64 product's halves ``[a | b]``, and its
+    condition scale |silu'(a)|·|b|·s_a + |silu(a)|·s_b, where s = |x|·|W|
+    is the product's."""
+    a, b = y.chunk(2, dim=-1)
+    sa, sb = scale.chunk(2, dim=-1)
+    sig = torch.sigmoid(a)
+    silu = a * sig
+    slope = (sig * (1 + a * (1 - sig))).abs_()
+    return silu * b, slope * b.abs() * sa + silu.abs() * sb
 
 
 def library_gemm(x, w, b, epilogue: str, residual):
@@ -680,7 +715,10 @@ def gemm_check(trunk: str, proj: str, shape, M: int, bias: bool,
     if b is not None:
         want += b.double()
         scale += b.double().abs()
-    want = esm_epilogue(want, epi, None if res is None else res.double())
+    if epi == "swiglu":
+        want, scale = swiglu_scale(want, scale)
+    else:
+        want = esm_epilogue(want, epi, None if res is None else res.double())
     if res is not None:
         scale += res.double().abs()
     scale_norm = scale.norm()
@@ -705,6 +743,9 @@ def gemm_check(trunk: str, proj: str, shape, M: int, bias: bool,
         raise AssertionError(f"{name}: not finite")
     if not err["split"][0] <= 2 * err["cublas"][0]:
         raise AssertionError(f"{name}: over twice cuBLAS float32's error")
+    if not err["split"][1] <= GEMM_LIB_RATIO * err["cublas"][1]:
+        raise AssertionError(f"{name}: normwise over {GEMM_LIB_RATIO} times "
+                             "cuBLAS float32's error")
     if not (err["to_twin"][0] <= rtol and err["to_twin"][1] <= GEMM_TWIN_RMS):
         raise AssertionError(f"{name}: differs from its twin")
     if not (err["cut_to_twin"][1] > GEMM_TWIN_RMS
@@ -730,8 +771,9 @@ def esm_gemm_times(dev) -> list:
                 x, w, b, epi, res = gemm_operands(shape, M, bias, dev)
                 planes = eg.weight_planes(w)
                 flops = 2 * M * K * N
+                out = N // 2 if epi == "swiglu" else N
                 nbytes = (4 * M * K + 6 * K * N + (4 * N if bias else 0)
-                          + 4 * M * N * (1 if res is None else 2))
+                          + 4 * M * out * (1 if res is None else 2))
                 t_ops = flops / BF16_TENSOR_FLOP_PER_S
                 t_bytes = nbytes / HBM_BYTES_PER_S
                 row = timed_row(
@@ -811,7 +853,7 @@ def phase_esm(dev, smi):
     """Phase 11: returns E1's max |Δ| to its twin, its timed rows, and its
     and E2's launches on the main path."""
     log("phase 11: the trunks' projections (esm_gemm) at the published "
-        "widths: ESM-2 650M's and ProtT5-XL-UniRef50's")
+        "widths: ESM-2 650M's, ProtT5-XL-UniRef50's and ESM C 600M's")
     worst = esm_gemm_checks(dev)
     rows = esm_gemm_times(dev)
     log(f"esm_gemm times (CUDA events, mean of 10) on {smi}:")
@@ -822,7 +864,9 @@ def phase_esm(dev, smi):
          "model/esm/gemm"),
         (deepfri.ProtT5GCNConfig(n_labels=MODES["mf"],
                                  t5=prott5.ProtT5Config()),
-         "model/t5/gemm"))]
+         "model/t5/gemm"),
+        (deepfri.ESMCGCNConfig(n_labels=MODES["mf"], esmc=esmc.ESMCConfig()),
+         "model/esmc/gemm"))]
     return worst, rows, sum(c[0] for c in counts), sum(c[1] for c in counts)
 
 
@@ -2841,8 +2885,9 @@ def main(argv=None) -> int:
                     and r["bucket"] == 512 and r["dtype"] == "float32"
                     and r["D"] in (None, 1024))
 
-    # E1 twice: ESM-2's fc1 (the widest of its four) and ProtT5's wo (K
-    # 16,384, no bias, the residual add); E2 at each trunk's bucket 1024.
+    # E1 three times: ESM-2's fc1 (the widest of its four), ProtT5's wo (K
+    # 16,384, no bias, the residual add) and ESM C's fc1 (the gated
+    # SwiGLU store); E2 at each trunk's bucket 1024.
     summary = {"kernels": [
         {"name": name, **({"shape": " ".join(shape)} if shape else {}),
          "route": "cuda", "source": SOURCES[name],
@@ -2855,6 +2900,7 @@ def main(argv=None) -> int:
                             ("contact_degrees", None), ("contact_map", None),
                             ("esm_gemm", ("esm2", "fc1")),
                             ("esm_gemm", ("prott5", "wo")),
+                            ("esm_gemm", ("esmc", "fc1")),
                             ("attention", ("esm2", "bucket-1024")),
                             ("attention", ("prott5", "bucket-1024")))]}
     log(json.dumps(summary))

@@ -23,8 +23,8 @@ _MAX_GCN_BATCH = 2048
 # Target token elements per CNN batch (B·L) — CNN has no O(L²) term.
 _TARGET_TOK_ELEMS = 512 * 1024
 # Token slots (rows × bucket) a batch of a GCN with a transformer trunk
-# (ESM-2 or ProtT5), whose 1.3-2.4 GFLOP a token dwarfs the rest: the B·L²
-# rule above would give ~1 M tokens (~27 s of float32 work) a batch at
+# (ESM-2, ProtT5, ESM C), whose 1.1-2.4 GFLOP a token dwarfs the rest: the
+# B·L² rule above would give ~1 M tokens (~27 s of float32 work) a batch at
 # bucket 512. Chosen by a sweep on the H100 with ESM-2 (PERF.md).
 ESM_TOKEN_SLOTS = 32 * 1024
 

@@ -410,7 +410,7 @@ class BatchedPredictor:
 
     def _steady_batch(self, bucket: int, net: str = "gcn_coords") -> int:
         """The full batch size for a bucket: the one-device size (by token
-        slots where a GCN mode has a transformer trunk, ESM-2 or ProtT5)
+        slots where a GCN mode has a transformer trunk: ESM-2, ProtT5, ESM C)
         times the device count, capped."""
         if net == "cnn":
             batch = cnn_batch_size(bucket)

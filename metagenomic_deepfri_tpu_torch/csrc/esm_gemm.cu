@@ -1,10 +1,11 @@
 // Float32-exact GEMM on Hopper's tensor cores for the transformer trunks'
-// projections (ESM-2's and ProtT5's; sm_90a):  y = epilogue(x W [+ b])
+// projections (ESM-2's, ProtT5's and ESM C's; sm_90a):  y = epilogue(x W [+ b])
 //   x (M, K) float32, W given as three bf16 planes (3, N, Kp) K-major,
 //   b (N) float32 or none, y (M, N) float32; epilogue: nothing more,
-//   erf-GELU, ReLU, or a float32 residual added. Bias or none and the
-//   epilogue are template parameters, so each kernel instance's main loop
-//   is the same code and only its store differs.
+//   erf-GELU, ReLU, a float32 residual added, or SwiGLU (ESM C's fc1:
+//   silu(a) * b of the product's halves [a | b], y (M, N / 2); see below).
+//   Bias or none and the epilogue are template parameters, so each kernel
+//   instance's main loop is the same code and only its store differs.
 //
 // Replaces no TPU kernel: the JAX package leaves these products to XLA.
 // It exists because PyTorch runs a float32 matmul with TF32 off on the
@@ -51,6 +52,12 @@
 //   - The epilogue adds the bias (where there is one), then GELU, ReLU or
 //     the residual, and stores float2s; rows >= M and columns >= N are not
 //     written.
+//   - SwiGLU: the planes hold W's gate and up columns interleaved in blocks
+//     of 64 (ops/esm_gemm.py::interleave_swiglu), so a tile's columns 0-63
+//     are gates and 64-127 their up columns. In the m64n128 accumulator a
+//     thread that holds column j (block c of 8) holds column j + 64 (block
+//     c + 8) too, so each thread pairs its own registers and writes 64
+//     columns of y a tile, with no shuffle and no 2N-wide intermediate.
 // Grid: the N tiles of one row tile next to each other, so a row tile of x
 // is read from device memory once and from L2 by its other column tiles.
 //
@@ -85,7 +92,10 @@ constexpr int kPlaneBytes = kBN * kBK * 2;
 constexpr int kABytes = kBM * kBK * 4;
 constexpr int kStageBytes = kABytes + 3 * kPlaneBytes;
 
-enum Epilogue { kBias = 0, kGelu = 1, kResidual = 2, kRelu = 3 };
+enum Epilogue {
+  kBias = 0, kGelu = 1, kResidual = 2, kRelu = 3, kSwiglu = 4
+};
+constexpr int kGate = kBN / 2;            // gate columns a SwiGLU tile
 
 struct __align__(1024) Stage {
   float a[kBM * kBK];                       // 128-byte swizzle
@@ -137,6 +147,17 @@ __device__ __forceinline__ float relu(float v) {
   return v < 0.f ? 0.f : v;
 }
 
+__device__ __forceinline__ float silu(float v) {
+  // F.silu's, as PyTorch's CUDA kernel writes it.
+  return v / (1.0f + expf(-v));
+}
+
+// Columns of W's planes, and so of the product, for y's n: n itself, or
+// for SwiGLU twice n rounded up to whole blocks of gates.
+__host__ __device__ constexpr int product_width(int epilogue, int n) {
+  return epilogue == kSwiglu ? (n + kGate - 1) / kGate * kBN : n;
+}
+
 }  // namespace esm
 
 template <int kEpilogue, bool kHasBias>
@@ -153,7 +174,7 @@ esm_gemm_kernel(const float* __restrict__ bias,
       (1024 - smem_addr(smem_raw) % 1024) % 1024;
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw + skew);
 
-  const int tiles_n = (N + kBN - 1) / kBN;
+  const int tiles_n = (product_width(kEpilogue, N) + kBN - 1) / kBN;
   const int n0 = (blockIdx.x % tiles_n) * kBN;
   const int m0 = (blockIdx.x / tiles_n) * kBM;
   // Stages of k: an even number (a stage past K reads zeros), two an
@@ -282,6 +303,35 @@ esm_gemm_kernel(const float* __restrict__ bias,
   }
 
   const bool pairs = (N & 1) == 0;
+  if constexpr (kEpilogue == kSwiglu) {
+    // Gate column 8c + 2q (+ 1) of the tile in sum[4c + 2h (+ 1)], its up
+    // column 64 further in sum[4(c + 8) + 2h (+ 1)]; y's column is the
+    // gate's index among all gates.
+    const int f0 = (blockIdx.x % tiles_n) * kGate;
+#pragma unroll
+    for (int c = 0; c < kGate / 8; ++c) {
+      const int n = f0 + 8 * c + 2 * q;
+      if (n >= N) continue;
+      const bool two = n + 1 < N;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + r0 + 8 * h;
+        if (m >= M) continue;
+        const int g = 4 * c + 2 * h;
+        const int u = 4 * (c + kGate / 8) + 2 * h;
+        const float v0 = silu(sum[g]) * sum[u];
+        const float v1 = silu(sum[g + 1]) * sum[u + 1];
+        const size_t at = static_cast<size_t>(m) * N + n;
+        if (pairs && two) {
+          *reinterpret_cast<float2*>(y + at) = make_float2(v0, v1);
+        } else {
+          y[at] = v0;
+          if (two) y[at + 1] = v1;
+        }
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int c = 0; c < kBN / 8; ++c) {
     const int n = n0 + 8 * c + 2 * q;
@@ -377,10 +427,11 @@ cudaError_t launch(const float* x, const void* planes, const float* bias,
     if (dev < kMaxDevices) ready[dev].store(true, std::memory_order_release);
   }
   CUtensorMap xmap = {}, wmap = {};
-  err = tensor_maps(&xmap, &wmap, x, planes, M, N, K, ldx, ldw);
+  const int np = esm::product_width(kEpilogue, N);
+  err = tensor_maps(&xmap, &wmap, x, planes, M, np, K, ldx, ldw);
   if (err != cudaSuccess) return err;
   const int tiles = (M + esm::kBM - 1) / esm::kBM *
-                    ((N + esm::kBN - 1) / esm::kBN);
+                    ((np + esm::kBN - 1) / esm::kBN);
   kernel<<<tiles, esm::kThreads, bytes, stream>>>(bias, residual, y, M, N,
                                                   K, xmap, wmap);
   return cudaGetLastError();
@@ -406,7 +457,9 @@ extern "C" {
 // y (M, N) = epilogue(x (M, K) W [+ bias]). planes: W's (3, N, ldw) bf16
 // split, ldw >= K a multiple of 8, zero past K; x 16-byte aligned with ldx
 // a multiple of 4; bias (N) or null for none; epilogue 0 (nothing more),
-// 1 (GELU), 2 (residual (M, N) added), 3 (ReLU).
+// 1 (GELU), 2 (residual (M, N) added), 3 (ReLU), 4 (SwiGLU, no bias: the
+// planes hold 2 * ceil(N / 64) * 64 columns, gates and ups interleaved in
+// blocks of 64, and y's N columns are silu(gate) * up).
 int mdf_esm_gemm(const void* x, const void* planes, const void* bias,
                  const void* residual, void* y, int M, int N, int K, int ldx,
                  int ldw, int epilogue, void* stream) {
@@ -432,6 +485,12 @@ int mdf_esm_gemm(const void* x, const void* planes, const void* bias,
     case esm::kRelu:
       err = launch_epilogue<esm::kRelu>(xp, planes, bp, rp, yp, M, N, K, ldx,
                                         ldw, s);
+      break;
+    case esm::kSwiglu:
+      err = bp != nullptr
+                ? cudaErrorInvalidValue
+                : launch<esm::kSwiglu, false>(xp, planes, bp, rp, yp, M, N, K,
+                                              ldx, ldw, s);
       break;
     default:
       err = cudaErrorInvalidValue;

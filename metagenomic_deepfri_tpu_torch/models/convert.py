@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from metagenomic_deepfri_tpu_torch.models.esm2 import ESM2Config
+from metagenomic_deepfri_tpu_torch.models.esmc import ESMCConfig
 from metagenomic_deepfri_tpu_torch.models.prott5 import ProtT5Config
 
 
@@ -169,4 +170,54 @@ def prott5_from_hf_state_dict(state: Mapping, heads: int,
                        ffn=layers[0]["wi"]["kernel"].shape[1],
                        buckets=tree["rel_bias"].shape[0],
                        max_distance=max_distance, eps=eps, vocab=vocab)
+    return cfg, tree
+
+
+def esmc_from_state_dict(state: Mapping, heads: int | None = None) -> tuple:
+    """``(ESMCConfig, trunk tree)`` of an ESM C state dict in the ``esm``
+    package's key layout (``embed.weight``,
+    ``transformer.blocks.{i}.attn.layernorm_qkv.{0,1}.*``,
+    ``.attn.q_ln.weight``, ``.attn.k_ln.weight``, ``.attn.out_proj.weight``,
+    ``.ffn.{0,1,3}.*``, ``transformer.norm.weight``), as :mod:`.esmc` lays
+    the trunk out: ``nn.Linear`` weights (out, in) transposed to kernels
+    (in, out), ``layernorm_qkv.1`` as the ``[q | k | v]`` kernel and
+    ``ffn.1`` as the ``[gate | up]`` kernel, each kept in its order. Leaves
+    are float32 numpy arrays. The layer count and widths come from the
+    shapes; ``heads`` from the argument, else d / 64 (ESM C's heads are 64
+    wide); the rotary base and LayerNorm epsilon are ESM C's. The
+    ``sequence_head`` is not read."""
+    def get(name):
+        if name not in state:
+            raise KeyError(f"no {name!r} in the ESM C state dict")
+        return _host(state[name])
+
+    def kernel(name):
+        return {"kernel": get(name + ".weight").T.copy()}
+
+    def norm(name, shift=True):
+        p = {"scale": get(name + ".weight")}
+        if shift:
+            p["bias"] = get(name + ".bias")
+        return p
+
+    n_layers = 1 + max(int(m.group(1)) for m in (
+        re.match(r"transformer\.blocks\.(\d+)\.", k) for k in state) if m)
+    layers = []
+    for i in range(n_layers):
+        b = f"transformer.blocks.{i}."
+        layers.append({
+            "ln_qkv": norm(b + "attn.layernorm_qkv.0"),
+            "qkv": kernel(b + "attn.layernorm_qkv.1"),
+            "q_ln": norm(b + "attn.q_ln", shift=False),
+            "k_ln": norm(b + "attn.k_ln", shift=False),
+            "out": kernel(b + "attn.out_proj"),
+            "ln_ffn": norm(b + "ffn.0"),
+            "fc1": kernel(b + "ffn.1"),
+            "fc2": kernel(b + "ffn.3")})
+    tree = {"embed": get("embed.weight"), "layers": layers,
+            "ln_final": norm("transformer.norm", shift=False)}
+    vocab, dim = tree["embed"].shape
+    cfg = ESMCConfig(layers=n_layers, dim=dim,
+                     heads=heads if heads is not None else dim // 64,
+                     ffn=layers[0]["fc2"]["kernel"].shape[0], vocab=vocab)
     return cfg, tree

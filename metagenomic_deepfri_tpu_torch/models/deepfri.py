@@ -10,8 +10,8 @@ modules.
 GCN:   one-hot(26) ─┬─ LSTM-LM stack ── Dense(no bias) ──┐
                     └─ Dense(bias) ──────────────────────┴─ add → ReLU
        (an ESMGCNConfig runs ESM-2 (:mod:`.esm2`), a ProtT5GCNConfig
-       ProtT5's encoder (:mod:`.prott5`), on the tokens in the LSTM-LM's
-       place)
+       ProtT5's encoder (:mod:`.prott5`), an ESMCGCNConfig ESM C
+       (:mod:`.esmc`), on the tokens in the LSTM-LM's place: :data:`TRUNKS`)
        → 3 × GraphConv(512, ReLU):  Hₗ₊₁ = relu(Â · Hₗ · Wₗ)
        → concat(H₁‖H₂‖H₃) → masked sum-pool over L
        → Dense(1024, ReLU) → Dense(2·n_labels) → reshape (n_labels, 2)
@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple, Union
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +37,9 @@ from metagenomic_deepfri_tpu_torch.models import esm2, prott5
 from metagenomic_deepfri_tpu_torch.models.esm2 import (ESM2Config,
                                                        esm2_forward,
                                                        init_esm2)
+from metagenomic_deepfri_tpu_torch.models.esmc import (ESMCConfig,
+                                                       esmc_forward,
+                                                       init_esmc)
 from metagenomic_deepfri_tpu_torch.models.prott5 import (ProtT5Config,
                                                          init_prott5,
                                                          prott5_forward)
@@ -87,10 +90,47 @@ class ProtT5GCNConfig(GCNConfig):
     t5: ProtT5Config = ProtT5Config()
 
 
-def trunk_of(config) -> Optional[Union[ESM2Config, ProtT5Config]]:
-    """The transformer trunk's widths of a GCN config (ESM-2's or
-    ProtT5's), None for an LSTM-LM."""
-    return getattr(config, "esm", None) or getattr(config, "t5", None)
+@dataclass(frozen=True)
+class ESMCGCNConfig(GCNConfig):
+    """A GCN whose residue LM is ESM C (:mod:`.esmc`, widths ``esmc``) in
+    the LSTM-LM's place; the ``lm_*`` fields are not read."""
+    esmc: ESMCConfig = ESMCConfig()
+
+
+@dataclass(frozen=True)
+class Trunk:
+    """A transformer trunk as the GCN runs it: the config field holding its
+    widths and the class of those, and its module's functions."""
+    field: str
+    widths: type
+    forward: Callable    # (tree, widths, tokens, lengths, dtype) → (B, L, d)
+    init: Callable       # (widths, generator, device) → tree
+    counts: Callable     # (lengths, bucket) → the batch's counters
+
+
+# Every transformer trunk, by the GCN config class that names it. ESM-2's
+# and ProtT5's forwards are read from this module's names at each call: the
+# benchmark's tests of their cells replace ``deepfri.esm2_forward`` and
+# ``deepfri.prott5_forward`` to alter the trunk's output.
+TRUNKS = {
+    ESMGCNConfig: Trunk("esm", ESM2Config,
+                        lambda *a: esm2_forward(*a), init_esm2,
+                        esm2.trunk_counts),
+    ProtT5GCNConfig: Trunk("t5", ProtT5Config,
+                           lambda *a: prott5_forward(*a), init_prott5,
+                           prott5.trunk_counts),
+    ESMCGCNConfig: Trunk("esmc", ESMCConfig,
+                         esmc_forward, init_esmc,
+                         esm2.trunk_counts),
+}
+
+
+def trunk_of(config):
+    """The transformer trunk's widths of a GCN config (an
+    :class:`.esm2.ESM2Config`, :class:`.prott5.ProtT5Config` or
+    :class:`.esmc.ESMCConfig`: :data:`TRUNKS`), None for an LSTM-LM."""
+    trunk = TRUNKS.get(type(config))
+    return None if trunk is None else getattr(config, trunk.field)
 
 
 @dataclass(frozen=True)
@@ -134,13 +174,12 @@ def init_gcn(config: GCNConfig, generator: torch.Generator, device, *,
              gc_bias: bool = False, lm_embed_bias: bool = False) -> dict:
     """Random GCN parameter tree (same structure and shapes as the JAX
     ``init_gcn``; different numbers, since the generators differ). With a
-    transformer trunk, ``lm`` is :func:`.esm2.init_esm2`'s or
-    :func:`.prott5.init_prott5`'s tree."""
-    trunk = trunk_of(config)
+    transformer trunk, ``lm`` is its module's tree (:data:`TRUNKS`)."""
+    trunk = TRUNKS.get(type(config))
     if trunk is not None:
-        lm_out = trunk.dim
-        lm = (init_prott5 if isinstance(trunk, ProtT5Config)
-              else init_esm2)(trunk, generator, device)
+        widths = trunk_of(config)
+        lm_out = widths.dim
+        lm = trunk.init(widths, generator, device)
     else:
         lm_out = config.lm_hidden * (2 if config.lm_bidirectional else 1)
         lm = init_lstm_stack(config.vocab, config.lm_hidden,
@@ -272,19 +311,17 @@ def _lm_forward(lm: object, config: GCNConfig, tokens: torch.Tensor,
                onehot: torch.Tensor, lengths: torch.Tensor,
                dtype: torch.dtype) -> torch.Tensor:
     """The residue LM's (B, L, ·) output: the LSTM-LM stack on the one-hot,
-    or a transformer trunk (ESM-2, ProtT5) on the tokens (in float32,
+    or a transformer trunk (:data:`TRUNKS`) on the tokens (in float32,
     float64 for float64 compute), whose batch counters ``tokens``,
     ``slots`` and ``attn_pairs`` (the trunk module's ``trunk_counts``) go to
     the enclosing span while spans are recorded."""
-    trunk = trunk_of(config)
+    trunk = TRUNKS.get(type(config))
     if trunk is None:
         return lstm_stack_forward(lm, onehot, lengths, compute_dtype=dtype)
-    t5 = isinstance(trunk, ProtT5Config)
     if recording():
-        count(**(prott5 if t5 else esm2).trunk_counts(lengths,
-                                                      tokens.shape[1]))
-    return (prott5_forward if t5 else esm2_forward)(
-        lm, trunk, tokens, lengths, accumulate_dtype(dtype))
+        count(**trunk.counts(lengths, tokens.shape[1]))
+    return trunk.forward(lm, trunk_of(config), tokens, lengths,
+                         accumulate_dtype(dtype))
 
 
 def _embed(params: dict, config: GCNConfig, tokens: torch.Tensor,

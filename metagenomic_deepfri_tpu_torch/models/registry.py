@@ -21,12 +21,9 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from metagenomic_deepfri_tpu_torch.batching.engine import ModelHandle
-from metagenomic_deepfri_tpu_torch.models.deepfri import (CNNConfig,
-                                                          ESMGCNConfig,
-                                                          GCNConfig,
-                                                          ProtT5GCNConfig)
-from metagenomic_deepfri_tpu_torch.models.esm2 import ESM2Config
-from metagenomic_deepfri_tpu_torch.models.prott5 import ProtT5Config
+from metagenomic_deepfri_tpu_torch.models.deepfri import (TRUNKS,
+                                                          CNNConfig,
+                                                          GCNConfig)
 from metagenomic_deepfri_tpu_torch.models.onnx_import import (
     _topo_matmul_weights, collect_lstm_layers, detect_embedding_merge,
     detect_gcn_pool, graph_input_roles, import_cnn_params, import_gcn_params,
@@ -359,9 +356,9 @@ def _unflatten(flat: dict):
 
 
 def save_checkpoint(path, config, params):
-    """Save params (+config) as .npz / .json sidecar (an
-    :class:`ESMGCNConfig`'s with its trunk's widths under ``esm``, a
-    :class:`ProtT5GCNConfig`'s under ``t5``)."""
+    """Save params (+config) as .npz / .json sidecar (a config with a
+    transformer trunk, :data:`..deepfri.TRUNKS`, with the trunk's widths
+    under its field: ``esm``, ``t5`` or ``esmc``)."""
     flat = _flatten(params)
     np.savez_compressed(path, **flat)
     cfg = dict(asdict(config))
@@ -379,14 +376,12 @@ def load_checkpoint(path):
     cfg_path = str(Path(path).with_suffix("")) + "_config.json"
     with open(cfg_path, "r", encoding="utf-8") as f:
         cfg = json.load(f)
-    cls = {"GCNConfig": GCNConfig, "CNNConfig": CNNConfig,
-           "ESMGCNConfig": ESMGCNConfig,
-           "ProtT5GCNConfig": ProtT5GCNConfig}[cfg.pop("__class__")]
+    classes = {c.__name__: c for c in (GCNConfig, CNNConfig, *TRUNKS)}
+    cls = classes[cfg.pop("__class__")]
     for key in ("gc_dims", "fc_dims", "conv_kernels"):
         if key in cfg:
             cfg[key] = tuple(cfg[key])
-    if "esm" in cfg:
-        cfg["esm"] = ESM2Config(**cfg["esm"])
-    if "t5" in cfg:
-        cfg["t5"] = ProtT5Config(**cfg["t5"])
+    trunk = TRUNKS.get(cls)
+    if trunk is not None and trunk.field in cfg:
+        cfg[trunk.field] = trunk.widths(**cfg[trunk.field])
     return cls(**cfg), params

@@ -2,9 +2,11 @@
 projections.
 
 ``y = epilogue(x·W + b)``, or ``epilogue(x·W)`` without a bias, for
-ESM-2's ``qkv``, ``out``, ``fc1`` and ``fc2`` (:mod:`..models.esm2`) and
+ESM-2's ``qkv``, ``out``, ``fc1`` and ``fc2`` (:mod:`..models.esm2`),
 ProtT5's bias-free ``qkv``, ``o``, ``wi`` and ``wo``
-(:mod:`..models.prott5`). The CUDA kernel (``csrc/esm_gemm.cu``) replaces
+(:mod:`..models.prott5`) and ESM C's bias-free ``qkv``, ``out``, ``fc1``
+(gated: ``silu(a) ⊙ b`` of its two halves) and ``fc2``
+(:mod:`..models.esmc`). The CUDA kernel (``csrc/esm_gemm.cu``) replaces
 no TPU kernel: it exists because PyTorch runs a float32 matmul with TF32
 off on the CUDA cores, where the trunks' GEMMs took ~80 % of an ESM-2
 cell's device time.
@@ -15,6 +17,11 @@ plane products are summed in float32: hi·hi, hi·mid, mid·hi, hi·lo,
 mid·mid, lo·hi. Each dropped product is at most 2⁻²⁴·|x|·|w| a term,
 float32's unit roundoff. W's planes are made once per kernel tensor and
 kept while it lives (:func:`weight_planes`); x is split inside the kernel.
+For the gated epilogue ``"swiglu"`` the planes hold W's gate and up columns
+interleaved in blocks of 64 (:func:`interleave_swiglu`), so that each of the
+kernel's 128-column tiles holds 64 gate columns and their 64 up columns and
+writes 64 columns of ``silu(a) ⊙ b`` (:func:`swiglu_tiles` is that store in
+plain PyTorch).
 
 :func:`esm_gemm` launches the kernel on CUDA tensors or raises; its plain
 twin is :func:`esm_gemm_ref` (the same planes, the same six products,
@@ -41,9 +48,13 @@ from metagenomic_deepfri_tpu_torch.profiling import (count, device_span,
                                                       recording)
 
 # The kernel's epilogues, as its C entry point numbers them ("bias": nothing
-# after the product and its bias, if any).
-EPILOGUES = {"bias": 0, "gelu": 1, "residual": 2, "relu": 3}
+# after the product and its bias, if any; "swiglu": ``silu(a) ⊙ b`` of the
+# product's halves ``[a | b]``, half as wide as the product).
+EPILOGUES = {"bias": 0, "gelu": 1, "residual": 2, "relu": 3, "swiglu": 4}
 _PLANE_ALIGN = 8  # the planes' row length, in bf16 elements (16 bytes)
+# Gate columns, and as many up columns, of each 128-column tile of the
+# "swiglu" planes.
+SWIGLU_BLOCK = 64
 
 
 def split_gemm_active(x: torch.Tensor, w: torch.Tensor) -> bool:
@@ -70,22 +81,49 @@ def split_planes(w: torch.Tensor) -> torch.Tensor:
     return planes
 
 
+def interleave_swiglu(w: torch.Tensor) -> torch.Tensor:
+    """(K, 2F) ``[gate | up]`` kernel → (K, 2·Fp), Fp = F rounded up to a
+    multiple of :data:`SWIGLU_BLOCK`: 64 gate columns, then the same 64
+    up columns, and so on, zeros past F."""
+    K, N = w.shape
+    if N % 2:
+        raise ValueError(f"a gated kernel has an even width, got {N}")
+    F_ = N // 2
+    Fp = -(-F_ // SWIGLU_BLOCK) * SWIGLU_BLOCK
+    gate, up = (F.pad(h, (0, Fp - F_)).view(K, Fp // SWIGLU_BLOCK, 1,
+                                            SWIGLU_BLOCK)
+                for h in (w[:, :F_], w[:, F_:]))
+    return torch.cat([gate, up], dim=2).reshape(K, 2 * Fp)
+
+
+def swiglu_tiles(y: torch.Tensor, width: int) -> torch.Tensor:
+    """The gated epilogue on a product of :func:`interleave_swiglu`'s
+    columns, (M, 2·Fp) → (M, ``width``), as the kernel stores it: each
+    64 gate columns paired with the 64 up columns that follow them."""
+    M = y.shape[0]
+    blocks = y.view(M, -1, 2, SWIGLU_BLOCK)
+    out = F.silu(blocks[:, :, 0]) * blocks[:, :, 1]
+    return out.reshape(M, -1)[:, :width]
+
+
 _planes: dict = {}
 _planes_lock = threading.Lock()
 
 
-def weight_planes(w: torch.Tensor) -> torch.Tensor:
-    """:func:`split_planes` of ``w``, made once per kernel tensor: kept by
-    the tensor's identity while it lives, and made anew if it was changed
-    in place (its version counter moved; an inference tensor has none and
-    cannot be changed in place)."""
-    key = id(w)
+def weight_planes(w: torch.Tensor, epilogue: str = "bias") -> torch.Tensor:
+    """:func:`split_planes` of ``w`` (of :func:`interleave_swiglu`'s
+    columns for the ``"swiglu"`` epilogue), made once per kernel tensor and
+    layout: kept by the tensor's identity while it lives, and made anew if
+    it was changed in place (its version counter moved; an inference
+    tensor has none and cannot be changed in place)."""
+    gated = epilogue == "swiglu"
+    key = (id(w), gated)
     version = 0 if w.is_inference() else w._version
     with _planes_lock:
         got = _planes.get(key)
     if got is not None and got[0]() is w and got[1] == version:
         return got[2]
-    planes = split_planes(w)
+    planes = split_planes(interleave_swiglu(w.detach()) if gated else w)
     ref = weakref.ref(w, lambda _, key=key: _planes.pop(key, None))
     with _planes_lock:
         _planes[key] = (ref, version, planes)
@@ -102,6 +140,9 @@ def _apply(y: torch.Tensor, epilogue: str,
         return torch.relu(y)
     if epilogue == "residual":
         return residual + y
+    if epilogue == "swiglu":
+        a, b = y.chunk(2, dim=-1)
+        return F.silu(a) * b
     return y
 
 
@@ -127,8 +168,8 @@ def esm_gemm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
              epilogue: str = "bias",
              residual: torch.Tensor | None = None) -> torch.Tensor:
     """(M, N) float32 ``epilogue(x·w + bias)`` (``epilogue(x·w)`` where
-    ``bias`` is None) from the planes of ``w``, by the kernel; every tensor
-    on x's CUDA device.
+    ``bias`` is None; (M, N/2) for ``"swiglu"``) from the planes of ``w``,
+    by the kernel; every tensor on x's CUDA device.
 
     Args:
         x: (M, K) float32, K ≥ 1.
@@ -137,14 +178,19 @@ def esm_gemm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
         bias: (N,) float32, or None: the kernel instance without a bias
             then runs, and no zeros are read.
         epilogue: "bias" (nothing more), "gelu" (erf GELU after the bias,
-            as ``F.gelu``), "relu" (``torch.relu``) or "residual"
-            (``residual + (x·w + bias)``).
+            as ``F.gelu``), "relu" (``torch.relu``), "residual"
+            (``residual + (x·w + bias)``) or "swiglu" (``F.silu(a) * b``
+            of ``[a | b] = x·w``, w of an even width; no bias).
         residual: (M, N) float32, for the "residual" epilogue only.
     """
     if epilogue not in EPILOGUES:
         raise ValueError(f"epilogue must be one of {tuple(EPILOGUES)}")
     if (epilogue == "residual") != (residual is not None):
         raise ValueError("a residual goes with the 'residual' epilogue only")
+    gated = epilogue == "swiglu"
+    if gated and (bias is not None or w.shape[1] % 2):
+        raise ValueError("the 'swiglu' epilogue takes a kernel of an even "
+                         "width and no bias")
     M, K = x.shape
     N = w.shape[1]
     if (w.shape[0] != K or K < 1
@@ -165,12 +211,15 @@ def esm_gemm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
     if residual is not None and residual.shape != (M, N):
         raise ValueError(f"residual must have shape {(M, N)}, got "
                          f"{tuple(residual.shape)}")
-    planes = weight_planes(w)
+    planes = weight_planes(w, epilogue)
     # TMA reads rows of whole 16-byte units from a 16-byte aligned start.
     if K % 4 or not x.is_contiguous() or x.data_ptr() % 16:
         x = F.pad(x, (0, -K % 4)).contiguous()
     bias = None if bias is None else bias.contiguous()
     residual = None if residual is None else residual.contiguous()
+    # The gated instance is told the width it writes, and reads its
+    # planes' interleaved width from it.
+    N = N // 2 if gated else N
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M == 0 or N == 0:
         return y

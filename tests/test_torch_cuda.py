@@ -1085,6 +1085,158 @@ def test_prott5_encoder_at_published_widths_on_card(cuda):
     assert exact < 5e-4 < tf32
 
 
+# -- ESM C's projections on E1 (its gated fc1), and its trunk at published
+# -- widths ---------------------------------------------------------------------
+
+# (K, N, epilogue) of ESM C 600M's bias-free projections; fc1's N is the 2F
+# columns the product computes, of which SwiGLU writes F.
+ESMC_PROJECTIONS = {"qkv": (1152, 3456, "bias"),
+                    "out": (1152, 1152, "residual"),
+                    "fc1": (1152, 6144, "swiglu"),
+                    "fc2": (3072, 1152, "residual")}
+ESMC_ROWS = 33280   # 32,768 token slots at bucket 128: 256 rows of 130
+
+
+def _esmc_reference(x64, w64, epilogue, res):
+    """float64 result of a projection and its condition scale: |x|·|W|
+    (+ |residual|); for SwiGLU |silu'(a)|·|b|·(|x|·|W_a|) +
+    |silu(a)|·(|x|·|W_b|)."""
+    F = torch.nn.functional
+    want, scale = x64 @ w64, x64.abs() @ w64.abs()
+    if epilogue == "swiglu":
+        a, b = want.chunk(2, dim=-1)
+        sa, sb = scale.chunk(2, dim=-1)
+        sig = torch.sigmoid(a)
+        slope = (sig * (1 + a * (1 - sig))).abs()
+        return F.silu(a) * b, slope * b.abs() * sa + F.silu(a).abs() * sb
+    if res is not None:
+        return res.double() + want, scale + res.double().abs()
+    return want, scale
+
+
+@pytest.mark.parametrize("proj", list(ESMC_PROJECTIONS))
+def test_esmc_gemm_against_twin_and_float64(cuda, proj):
+    """E1's bias-free instances on ESM C's four shapes at 33,280 rows, the
+    gated fc1 among them, on Glorot-uniform kernels: normwise (the
+    difference's norm over the condition scale's) within 2⁻²⁰ of the plain
+    twin (the same planes and six products, float32 sums in another
+    order; for fc1 on the un-interleaved kernel, then ``F.silu(a) * b``),
+    and against float64 at most 1.5 times cuBLAS float32's error (TF32
+    off) on the same inputs, with the same epilogue in float32."""
+    from metagenomic_deepfri_tpu_torch.ops import esm_gemm as eg
+
+    F = torch.nn.functional
+    K, N, epilogue = ESMC_PROJECTIONS[proj]
+    gen = torch.Generator(device=cuda).manual_seed(K + N + 1)
+    x = torch.randn(ESMC_ROWS, K, generator=gen, device=cuda)
+    w = (torch.rand(K, N, generator=gen, device=cuda) * 2 - 1) * (
+        6.0 / (K + N)) ** 0.5
+    res = (torch.randn(ESMC_ROWS, N, generator=gen, device=cuda)
+           if epilogue == "residual" else None)
+    use_highest_f32_precision()
+    launches = eg.esm_gemm.launches
+    got = eg.esm_gemm(x, w, None, epilogue, res)
+    assert eg.esm_gemm.launches == launches + 1
+    twin = eg.esm_gemm_ref(x, eg.split_planes(w), None, epilogue, res)
+    plain = torch.mm(x, w)
+    if epilogue == "swiglu":
+        plain = F.silu(plain[:, :N // 2]) * plain[:, N // 2:]
+    elif res is not None:
+        plain = res + plain
+    want, scale = _esmc_reference(x.double(), w.double(), epilogue, res)
+    norm = scale.norm()
+
+    def normwise(y):
+        return float((y.double() - want).norm() / norm)
+
+    gap = float((got.double() - twin.double()).norm() / norm)
+    split, cublas = normwise(got), normwise(plain)
+    widest = float(((got.double() - want).abs() / scale).max())
+    print(f"esmc gemm {proj} M={ESMC_ROWS} K={K} N={N}: normwise to twin "
+          f"{gap:.3g}, split {split:.3g}, cuBLAS {cublas:.3g} (ratio "
+          f"{split / cublas:.3f}); widest elementwise {widest:.3g}")
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert gap <= 2.0 ** -20
+    assert split <= 1.5 * cublas
+
+
+def test_esmc_trunk_at_published_widths_on_card(cuda):
+    """ESM C 600M's trunk (36 layers, d 1152, 18 heads of 64, SwiGLU 3072)
+    on one batch as the engine shapes it at bucket 512 (64 rows, an empty
+    padding row among them), TF32 off: every projection on E1 (``split``
+    1 on all 144 ``model/esmc/gemm`` spans, one launch each), every
+    attention on E2 (``split`` 1 on all 36 ``model/esmc/sdpa`` spans, one
+    launch each), 36 ``model/esmc/qkln`` spans counting the real tokens, and
+    the residue representation against the plain reference
+    (``portbench/reference_esmc.py``, float32 on the card) within 5e-4
+    (values of order 1 after the final LayerNorm: float32 rounding through
+    36 layers in two orders); the same batch with TF32 on misses it."""
+    from metagenomic_deepfri_tpu_torch import profiling
+    from metagenomic_deepfri_tpu_torch.batching.buckets import \
+        esm_batch_size
+    from metagenomic_deepfri_tpu_torch.models import esmc
+    from metagenomic_deepfri_tpu_torch.ops import attention as at
+    from metagenomic_deepfri_tpu_torch.ops import esm_gemm as eg
+    from portbench import reference_esmc
+
+    cfg = esmc.ESMCConfig()
+    tree = esmc.init_esmc(cfg, torch.Generator(device=cuda).manual_seed(7),
+                          cuda)
+    rows = esm_batch_size(512)
+    rng = np.random.default_rng(8)
+    seqs = ["".join(rng.choice(list(AMINO_ACIDS), size=int(n)))
+            for n in rng.integers(257, 513, rows - 1)]
+    tokens = np.zeros((rows, 512), np.uint8)
+    lengths = np.zeros(rows, np.int32)
+    for i, s in enumerate(seqs):
+        tokens[i, :len(s)] = seq2tokens(s)
+        lengths[i] = len(s)
+    tok, lens = (torch.from_numpy(tokens).to(cuda),
+                 torch.from_numpy(lengths).to(cuda))
+    use_highest_f32_precision()
+    plain = reference_esmc.reference
+    with plain.full_precision(), torch.inference_mode():
+        ref = reference_esmc.trunk(tree, dataclasses.asdict(cfg), seqs, cuda,
+                                   plain.exact)
+
+    def widest():
+        with torch.inference_mode():
+            got = esmc.esmc_forward(tree, cfg, tok, lens)
+        assert torch.isfinite(got).all()
+        return max(float((got[i, :len(s)] - ref[i, :len(s)]).abs().max())
+                   for i, s in enumerate(seqs))
+
+    launches = eg.esm_gemm.launches
+    attn = at.attention.launches
+    profiling.reset()
+    profiling.set_recording(True)
+    try:
+        exact = widest()
+        got = profiling.spans()
+    finally:
+        profiling.set_recording(None)
+        profiling.reset()
+    gemm = [s for s in got if s.name == "model/esmc/gemm"]
+    sdpa = [s for s in got if s.name == "model/esmc/sdpa"]
+    qkln = [s for s in got if s.name == "model/esmc/qkln"]
+    assert len(gemm) == 4 * cfg.layers
+    assert all(s.counts["split"] == 1 and s.counts["rows"] == rows * 514
+               for s in gemm)
+    assert eg.esm_gemm.launches == launches + 4 * cfg.layers
+    assert len(sdpa) == cfg.layers
+    assert all(s.counts["split"] == 1 for s in sdpa)
+    assert at.attention.launches == attn + cfg.layers
+    assert [s.counts["tokens"] for s in qkln] == [
+        sum(len(s) + 2 for s in seqs)] * cfg.layers
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = widest()
+    finally:
+        use_highest_f32_precision()
+    print(f"esmc trunk on the card: float32 {exact:.3g}, TF32 {tf32:.3g}")
+    assert exact < 5e-4 < tf32
+
+
 # -- E2: the trunks' attention (csrc/attention.cu) ----------------------------
 
 ATTN_BUCKETS = (128, 256, 512, 1024)

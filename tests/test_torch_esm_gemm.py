@@ -1,9 +1,11 @@
-"""The split GEMM of ESM-2's and ProtT5's projections (``ops/esm_gemm.py``)
-on the CPU: its plain twin against float64 (with a bias or none, every
-epilogue), the weight planes' split and cache, the dispatch that keeps
-``torch.addmm`` (``torch.mm`` without a bias) off the card, the
-``model/esm/gemm`` spans, and the benchmark's reader of them. The kernel
-itself is held on the card by ``tests/test_torch_cuda.py``."""
+"""The split GEMM of ESM-2's, ProtT5's and ESM C's projections
+(``ops/esm_gemm.py``) on the CPU: its plain twin against float64 (with a
+bias or none, every epilogue, ESM C's gated one among them), the weight
+planes' split and cache, the dispatch that keeps ``torch.addmm``
+(``torch.mm`` without a bias) off the card, the ``model/esm/gemm`` spans,
+and the benchmark's reader of them. The kernel itself is held on the card
+by ``tests/test_torch_cuda.py``, and its gated instance here too (marked
+``cuda``, skipped without a card)."""
 
 import types
 
@@ -151,7 +153,7 @@ def test_weight_planes_cached_by_identity_and_version():
     assert again is not first
     assert torch.equal(again.to(torch.float64).sum(0),
                        w.t().to(torch.float64))
-    key = id(w)
+    key = (id(w), False)   # the planes' identity and layout (not gated)
     assert key in eg._planes
     del w
     assert key not in eg._planes
@@ -319,3 +321,104 @@ def test_gemm_roofline_reader(monkeypatch, per_batch, reads):
         return
     want = 100.0 * (2.0 * 1000 * 64 * 32 / 989e12) / 1e-3
     assert got == pytest.approx(want)
+
+
+# -- the gated epilogue of ESM C's fc1 ------------------------------------------
+
+def _swiglu_scale(x64, w64):
+    """(silu(a)·b of float64, its condition scale |silu'(a)|·|b|·(|x|·|W_a|)
+    + |silu(a)|·(|x|·|W_b|)): the error of ``silu(a)·b`` from a and b each
+    within float32 rounding of |x|·|W|."""
+    a, b = (x64 @ w64).chunk(2, dim=-1)
+    sa, sb = (x64.abs() @ w64.abs()).chunk(2, dim=-1)
+    sig = torch.sigmoid(a)
+    slope = (sig * (1 + a * (1 - sig))).abs()
+    return F.silu(a) * b, slope * b.abs() * sa + F.silu(a).abs() * sb
+
+
+@pytest.mark.parametrize("K,F_", [(128, 512), (96, 100), (3072, 64)])
+def test_twin_swiglu_against_float64(K, F_):
+    """``silu(a) ⊙ b`` of the twin's product halves ``[a | b]``: within a
+    few float32 ulps of float64's, over its condition scale, as
+    ``F.silu(a) * b`` of ``torch.mm`` is."""
+    x, w, _ = _data(41, K, 2 * F_, seed=K + F_)
+    y = eg.esm_gemm_ref(x, eg.split_planes(w), None, "swiglu")
+    plain = torch.mm(x, w)
+    plain = F.silu(plain[:, :F_]) * plain[:, F_:]
+    want, scale = _swiglu_scale(x.double(), w.double())
+    scale = scale + want.abs()
+    u = 2.0 ** -24
+    for got in (y, plain):
+        assert got.shape == (41, F_)
+        assert float(((got.double() - want).abs() / scale).max()) <= 4 * K * u
+
+
+def test_project_swiglu_on_the_cpu_is_plain_pytorch():
+    """Off the card the gated projection is ``torch.mm``, then
+    ``F.silu(a) * b`` of its halves, bit for bit, with the counter ``n``
+    the 2F columns the product computes, and no launch."""
+    x, w, _ = _data(6, 16, 48, seed=10)
+    launches = eg.esm_gemm.launches
+    profiling.reset()
+    profiling.set_recording(True)
+    try:
+        got = eg.project({"kernel": w}, x[None], torch.float32, "test/gemm",
+                         "swiglu")
+        spans = profiling.spans()
+    finally:
+        profiling.set_recording(None)
+        profiling.reset()
+    plain = torch.mm(x, w)
+    assert got.shape == (1, 6, 24)
+    assert torch.equal(got[0], F.silu(plain[:, :24]) * plain[:, 24:])
+    assert [s.counts for s in spans] == [{"rows": 6, "k": 16, "n": 48,
+                                          "split": 0}]
+    assert eg.esm_gemm.launches == launches
+
+
+def test_swiglu_rejects_a_bias_and_an_odd_width():
+    x, w, b = _data(4, 8, 8, seed=0)
+    with pytest.raises(ValueError, match="swiglu"):
+        eg.esm_gemm(x, w, b, "swiglu")
+    with pytest.raises(ValueError, match="swiglu"):
+        eg.esm_gemm(x, w[:, :7], None, "swiglu")
+    with pytest.raises(ValueError, match="even"):
+        eg.interleave_swiglu(w[:, :7])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,F_", [(33280 - 37, 1152, 3072), (300, 96, 100),
+                                    (129, 3072, 64)])
+def test_swiglu_kernel_against_twin_on_card(M, K, F_):
+    """E1's gated instance on the card (ESM C's fc1 at a ragged batch, and
+    widths that leave a tile's gates part empty): within 2⁻²³ of its twin
+    on the un-interleaved kernel, normwise over the condition scale (the
+    bound of ``chip_smoke.GEMM_TWIN_RMS``), and finite; one launch, F
+    columns written. A twin without its lo planes (what a kernel that lost
+    them would give) must miss that bound at each of these shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(M + K + F_)
+    x = torch.randn(M, K, generator=gen, device=dev)
+    w = (torch.rand(K, 2 * F_, generator=gen, device=dev) * 2 - 1) * (
+        6.0 / (K + 2 * F_)) ** 0.5
+    use_highest_f32_precision()
+    launches = eg.esm_gemm.launches
+    got = eg.esm_gemm(x, w, None, "swiglu")
+    assert eg.esm_gemm.launches == launches + 1
+    planes = eg.split_planes(w)
+    twin = eg.esm_gemm_ref(x, planes, None, "swiglu")
+    hi, mid, _ = eg._split_bf16x3(x)
+    cut_planes = planes.clone()
+    cut_planes[2].zero_()
+    cut = eg.esm_gemm_ref(hi.float() + mid.float(), cut_planes, None,
+                          "swiglu")
+    _, scale = _swiglu_scale(x.double(), w.double())
+    norm = scale.norm()
+    gap = float((got.double() - twin.double()).norm() / norm)
+    cut_gap = float((cut.double() - twin.double()).norm() / norm)
+    print(f"swiglu M={M} K={K} F={F_}: to twin normwise {gap:.3g}, "
+          f"without lo planes {cut_gap:.3g}")
+    assert got.shape == (M, F_) and torch.isfinite(got).all()
+    assert gap <= 2.0 ** -23 < cut_gap
